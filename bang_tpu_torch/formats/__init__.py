@@ -1,0 +1,2 @@
+"""Offline builders of the port (`accel`). File formats are the JAX
+package's numpy layers (`bang_tpu.formats`), shared as they are."""

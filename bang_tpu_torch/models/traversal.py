@@ -1,0 +1,224 @@
+"""The greedy best-first graph traversal (port of bang_tpu/models/traversal.py).
+
+The reference's hot loop (BANG_Base/bang_search.cu:701-958;
+BANG_Inmemory/parANN.cu:531-611) over a batch of queries: state is a tuple
+of fixed-shape [Q, ...] tensors, and each iteration runs neighbor fetch ->
+visited filter -> distance -> merge -> parent select over the whole batch.
+`beam` parents are expanded per iteration (beam=1 is the reference
+schedule). Distances during traversal are squared L2 (no square roots, as
+in the reference and DiskANN's ground truth).
+
+The loop runs on the host and reads `active.any()` back once per
+iteration, as the reference reads its `nextIter` flag (parANN.cu:595);
+removing that sync (CUDA graphs over blocks of iterations) is ROADMAP
+Queue 1 item 13. The bloom visited set and the exact-distance function of
+the JAX module belong to later slices.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from bang_tpu.constants import INVALID_ID
+from bang_tpu_torch.ops.l2 import l2_distance_to_candidates
+from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_parents_beam
+from bang_tpu_torch.ops.pq import pq_distance_tables
+from bang_tpu_torch.ops.pq_kernels import frontier_lookup, pq_lookup
+from bang_tpu_torch.ops.visited import exact_new_mask, first_occurrence_mask_blocks
+
+
+class TraversalState(NamedTuple):
+    wl_dist: torch.Tensor  # [Q, L] f32
+    wl_ids: torch.Tensor  # [Q, L] i32
+    wl_vis: torch.Tensor  # [Q, L] bool
+    parents: torch.Tensor  # [Q, P] i32 — selected last iteration, expanded next
+    parent_valid: torch.Tensor  # [Q, P] bool
+    visited_ids: torch.Tensor  # [Q, MI*P] i32 — expansion order, INVALID padding
+    active: torch.Tensor  # [Q] bool
+    it: int  # host-side iteration counter
+    n_expanded: torch.Tensor  # int64 scalar — total parents expanded
+    n_dist_comps: torch.Tensor  # int64 scalar — candidate distances computed
+
+
+class SearchStats:
+    """Search statistics (iterations, expanded parents, distance
+    computations). The two counters stay on the device until first read;
+    `sync()` fetches them."""
+
+    __slots__ = ("iters", "_n_expanded", "_n_dist_comps")
+
+    def __init__(self, iters: int, n_expanded, n_dist_comps):
+        self.iters = int(iters)
+        self._n_expanded = n_expanded
+        self._n_dist_comps = n_dist_comps
+
+    def sync(self) -> "SearchStats":
+        if isinstance(self._n_expanded, torch.Tensor):
+            self._n_expanded = int(self._n_expanded.item())
+            self._n_dist_comps = int(self._n_dist_comps.item())
+        return self
+
+    @property
+    def n_expanded(self) -> int:
+        return self.sync()._n_expanded
+
+    @property
+    def n_dist_comps(self) -> int:
+        return self.sync()._n_dist_comps
+
+    def __repr__(self):
+        return (f"SearchStats(iters={self.iters}, n_expanded={self.n_expanded}, "
+                f"n_dist_comps={self.n_dist_comps})")
+
+
+def init_state(q: int, l: int, max_iters: int, entries: torch.Tensor,
+               entry_dists: torch.Tensor, beam: int = 1) -> TraversalState:
+    """entries [Q, P<=beam] int32 seed the first P beam slots per query;
+    entry_dists (same shape) are their worklist-seed distances. The seeds
+    enter the worklist already visited, so paths without re-rank can still
+    return them."""
+    dev = entries.device
+    p = entries.shape[1]
+    if p > beam:
+        raise ValueError(f"entry seeds {p} exceed beam width {beam}")
+    wl_dist, wl_ids, wl_vis = init_worklist(q, l, dev)
+    wl_dist[:, :p] = entry_dists.reshape(q, p)
+    wl_ids[:, :p] = entries
+    wl_vis[:, :p] = True
+    parents = torch.zeros((q, beam), dtype=torch.int32, device=dev)
+    parents[:, :p] = entries
+    parent_valid = torch.zeros((q, beam), dtype=torch.bool, device=dev)
+    parent_valid[:, :p] = True
+    visited = torch.full((q, max_iters * beam), INVALID_ID, dtype=torch.int32,
+                         device=dev)
+    visited[:, :p] = entries
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return TraversalState(
+        wl_dist, wl_ids, wl_vis, parents, parent_valid, visited,
+        torch.ones((q,), dtype=torch.bool, device=dev), 1, zero, zero.clone(),
+    )
+
+
+def make_step(adj, distance_fn, beam: int = 1):
+    """Build the per-iteration body.
+
+    `distance_fn(cand_ids [Q, C], parents [Q, P]) -> [Q, C] f32`. When
+    `distance_fn.frontier_fn(parents) -> (cand_ids, dists)` exists (fused
+    rows), one call yields both and `adj` is not read: pass None.
+    `adj`: [N, R] int32 tensor (scattered layout) or None."""
+    frontier_fn = getattr(distance_fn, "frontier_fn", None)
+    if adj is not None:
+        r = adj.shape[1]
+    elif frontier_fn is not None:
+        r = distance_fn.r
+    else:
+        raise ValueError("need an adjacency table or a distance_fn.frontier_fn")
+
+    def step(state: TraversalState) -> TraversalState:
+        q = state.parents.shape[0]
+        if frontier_fn is not None:
+            cand, raw = frontier_fn(state.parents)
+        else:
+            cand = adj[state.parents.long()].reshape(q, beam * r)
+            raw = None
+        cand_valid = state.parent_valid.repeat_interleave(r, dim=1)
+
+        new = exact_new_mask(cand, state.wl_ids, state.visited_ids)
+        new = new & cand_valid & state.active[:, None]
+        if beam > 1:
+            # parents expanded together may share neighbors — keep first lane
+            new = new & first_occurrence_mask_blocks(cand, beam)
+        if raw is None:
+            raw = distance_fn(cand, state.parents)
+        dist = torch.where(new, raw, torch.full_like(raw, float("inf")))
+        wl_dist, wl_ids, wl_vis = merge_worklist(
+            state.wl_dist, state.wl_ids, state.wl_vis, dist, cand
+        )
+        parents, parent_valid, active, wl_vis = select_parents_beam(
+            wl_dist, wl_ids, wl_vis, beam
+        )
+        # in place: the previous state's visited list is not read again
+        visited = state.visited_ids
+        visited[:, state.it * beam : (state.it + 1) * beam] = torch.where(
+            parent_valid, parents, torch.full_like(parents, INVALID_ID)
+        )
+        return TraversalState(
+            wl_dist, wl_ids, wl_vis, parents, parent_valid, visited, active,
+            state.it + 1,
+            state.n_expanded + state.parent_valid.sum(),
+            state.n_dist_comps + new.sum(),
+        )
+
+    return step
+
+
+def run_traversal(adj, distance_fn, medoid: int, q: int, l: int,
+                  max_iters: int, beam: int, device) -> TraversalState:
+    """Run the traversal from the shared medoid entry; returns the final
+    state. Stops after `max_iters` iterations or when no query has an
+    unvisited worklist entry left."""
+    step = make_step(adj, distance_fn, beam)
+    entry = torch.full((q, 1), medoid, dtype=torch.int32, device=device)
+    # the entry's distance: distance_fn's seed_fn when it has one (all
+    # queries share this one node, so no gather and no kernel is needed)
+    seed_fn = getattr(distance_fn, "seed_fn", distance_fn)
+    state = init_state(q, l, max_iters, entry, seed_fn(entry, None), beam)
+    while state.it < max_iters and bool(state.active.any()):
+        state = step(state)
+    return state
+
+
+def make_pq_distance_fn(queries_f32, codebook, codes, fused_rows=None):
+    """Traversal distance: PQ table lookup (BANG_Base/Inmemory behavior).
+    Tables are built once per batch.
+
+    Without fused rows, `distance_fn(cand_ids, parents)` gathers each
+    candidate's codes and runs K1 (`pq_lookup`). With fused_rows [N,
+    R*(4+m)] u8 it also carries `frontier_fn(parents)`, which runs K2
+    (`frontier_lookup`) on the ungathered rows, and the degree `r`.
+    `seed_fn` gives the shared entry node's distance directly from its
+    reconstructed vector."""
+    tables = pq_distance_tables(codebook, queries_f32)
+    m = codebook.num_chunks
+
+    def distance_fn(cand_ids, parents=None):
+        return pq_lookup(tables, codes[cand_ids.long()])  # [Q, C, m] gather
+
+    def seed_fn(cand_ids, parents=None):
+        node_codes = codes[cand_ids[0, 0].long()].long()  # same node for all
+        recon = codebook.piv_chunks[
+            torch.arange(m, device=codes.device), node_codes
+        ]  # [m, dmax]
+        qc = (queries_f32 - codebook.centroid)[:, codebook.dim_idx]
+        qc = qc * codebook.dim_mask  # [Q, m, dmax]
+        return ((qc - recon[None]) ** 2).sum(dim=(1, 2))[:, None]
+
+    distance_fn.seed_fn = seed_fn
+    if fused_rows is not None:
+        distance_fn.r = fused_rows.shape[1] // (4 + m)
+
+        def frontier_fn(parents):
+            return frontier_lookup(tables, fused_rows, parents)
+
+        distance_fn.frontier_fn = frontier_fn
+    return distance_fn
+
+
+def rerank_topk(queries_f32: torch.Tensor, vectors: torch.Tensor,
+                visited_ids: torch.Tensor, k: int):
+    """Exact re-rank of all expanded nodes, then top-k.
+
+    Replaces the reference's compute_L2Dist + compute_NearestNeighbours pair
+    (bang_search.cu:1254-1368). Ties break lowest index first, as
+    `lax.top_k` does in the JAX package: a stable ascending sort, not
+    `torch.topk`, whose tie order is unspecified (u8 data gives integer
+    distances and frequent ties). Returns (ids [Q, k] i32, dists [Q, k] f32
+    squared L2)."""
+    safe_ids = visited_ids.clamp_min(0).long()
+    vecs = vectors[safe_ids]  # [Q, MI, D]
+    d = l2_distance_to_candidates(queries_f32, vecs)
+    d = torch.where(visited_ids == INVALID_ID, torch.full_like(d, float("inf")), d)
+    sd, order = torch.sort(d, dim=1, stable=True)
+    return visited_ids.gather(1, order[:, :k]), sd[:, :k]
