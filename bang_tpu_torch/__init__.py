@@ -7,11 +7,13 @@ name. It imports `torch` and never `jax`: the numpy-only layers of bang_tpu
 `utils/{config,recall,logging}.py`, `constants.py`) are the on-disk
 contract both packages share, and the port imports them as they are.
 
-Slice ported so far: the in-memory PQ search (BANG_Inmemory) end to end —
-PQ tables, the traversal loop, exact re-rank, the `BANGSearch("inmemory")`
-facade and the builders a bench bundle needs. Every Pallas kernel on that
-path has a hand-written CUDA kernel under `csrc/` (see
-`ops/pq_kernels.py`).
+Slices ported so far: the in-memory PQ search (BANG_Inmemory) and the
+exact-distance search (BANG_Exactdistance) end to end — PQ tables, the
+traversal loop with medoid or sampled entries, exact re-rank, the
+`BANGSearch("inmemory" | "exactdistance")` facade — and the builders a
+bench bundle needs, the Vamana graph included. Every Pallas kernel on those
+paths has a hand-written CUDA kernel under `csrc/` (see `ops/pq_kernels.py`
+and `ops/exact_kernels.py`).
 
 Importing the package turns TF32 off for float32 matmuls and convolutions:
 the JAX path computes its tables and distances at `Precision.HIGHEST`.

@@ -1,14 +1,13 @@
-"""Offline index construction on the device: exact ground truth, the
-alpha-pruned kNN graph and PQ encoding (port of the builders a bench bundle
-needs from bang_tpu/formats/accel.py, with `_robust_prune_batch` from
-bang_tpu/formats/vamana.py).
+"""Offline index construction on the device: exact ground truth, the kNN
+and alpha-pruned kNN graphs and PQ encoding (port of the builders a bench
+bundle needs from bang_tpu/formats/accel.py, with `_robust_prune_batch`
+from bang_tpu/formats/vamana.py; the Vamana builder is formats/vamana.py).
 
 Blocked float32 matmuls (TF32 off) plus a top-k whose distance ties break
 lowest index first, like `lax.top_k`: u8 data gives integer distances and
 frequent ties, and `torch.topk` leaves their order unspecified. Output
 contracts are those of the JAX functions. PQ training stays the shared
-numpy `bang_tpu.formats.synthetic.train_pq`; the Vamana builder waits for
-the exact-distance traversal (ROADMAP Queue 1 item 10).
+numpy `bang_tpu.formats.synthetic.train_pq`.
 """
 
 from __future__ import annotations
@@ -92,6 +91,54 @@ def _robust_prune_batch(cand_vecs, cand_dists, cand_valid, r: int, alpha: float)
     return sel_idx, sel_valid
 
 
+def _random_edges(adj: np.ndarray, k_keep: int, n_random: int, seed: int) -> np.ndarray:
+    """Fill columns k_keep.. with random non-self edges (numpy generator
+    from `seed`, as in the JAX builders), then self-pad duplicates."""
+    n = adj.shape[0]
+    if n_random > 0:
+        rng = np.random.default_rng(seed)
+        adj[:, k_keep:] = rng.integers(0, n, size=(n, n_random), dtype=np.int32)
+        self_hit = adj[:, k_keep:] == np.arange(n, dtype=np.int32)[:, None]
+        adj[:, k_keep:][self_hit] = (adj[:, k_keep:][self_hit] + 1) % n
+    return _dedup_rows_self(adj)
+
+
+def _drop_self(ids, dists, rows, k):
+    """The first k columns of a top-k block after moving the row's own id
+    to the back (stable, so the other columns keep their order)."""
+    order = torch.sort((ids == rows[:, None]).to(torch.int8), dim=1,
+                       stable=True).indices[:, :k]
+    return ids.gather(1, order), dists.gather(1, order)
+
+
+def build_knn_graph(
+    vectors: np.ndarray,
+    r: int,
+    device,
+    n_random: int = 8,
+    seed: int = 0,
+    block: int = 1024,
+) -> tuple[np.ndarray, np.ndarray]:
+    """kNN + random-edge navigable graph: (adj [N, r] int32 self-padded,
+    degrees [N] int32), the contract of the JAX `build_knn_graph_jax`.
+
+    Per node: the r - n_random nearest neighbors plus n_random random
+    edges."""
+    assert_exact_float32()
+    dev = resolve_device(device)
+    n = vectors.shape[0]
+    k_nn = r - n_random
+    v = torch.as_tensor(vectors, device=dev).float()
+    norms = squared_norms(v)
+    adj = np.empty((n, r), dtype=np.int32)
+    for s in range(0, n, block):
+        blk = v[s : s + block]
+        ids, dists = _block_topk(blk, v, norms, k_nn + 1)
+        rows = torch.arange(s, s + blk.shape[0], device=dev)
+        adj[s : s + block, :k_nn] = _drop_self(ids, dists, rows, k_nn)[0].cpu().numpy()
+    return _random_edges(adj, k_nn, n_random, seed), np.full(n, r, dtype=np.int32)
+
+
 def build_pruned_knn_graph(
     vectors: np.ndarray,
     r: int,
@@ -116,18 +163,13 @@ def build_pruned_knn_graph(
     k_base = min(n - 1, k_base_factor * r)
     v = torch.as_tensor(vectors, device=dev).float()
     norms = squared_norms(v)
-    rng = np.random.default_rng(seed)
     adj = np.empty((n, r), dtype=np.int32)
     for s in range(0, n, block):
         blk = v[s : s + block]
         nb = blk.shape[0]
         ids, dists = _block_topk(blk, v, norms, k_base + 1)
         rows = torch.arange(s, s + nb, device=dev)
-        # drop the self column (stable-sort "self" to the back, keep k_base)
-        order = torch.sort((ids == rows[:, None]).to(torch.int8), dim=1,
-                           stable=True).indices[:, :k_base]
-        cand_ids = ids.gather(1, order)
-        cand_dists = dists.gather(1, order)
+        cand_ids, cand_dists = _drop_self(ids, dists, rows, k_base)
         sel_idx, sel_valid = _robust_prune_batch(
             v[cand_ids], cand_dists,
             torch.ones_like(cand_dists, dtype=torch.bool), k_keep, alpha,
@@ -136,13 +178,7 @@ def build_pruned_knn_graph(
         adj[s : s + nb, :k_keep] = torch.where(
             sel_valid, picked, rows[:, None]
         ).cpu().numpy()
-    if n_random > 0:
-        adj[:, k_keep:] = rng.integers(0, n, size=(n, n_random), dtype=np.int32)
-        self_hit = adj[:, k_keep:] == np.arange(n, dtype=np.int32)[:, None]
-        adj[:, k_keep:][self_hit] = (adj[:, k_keep:][self_hit] + 1) % n
-    adj = _dedup_rows_self(adj)
-    degrees = np.full(n, r, dtype=np.int32)
-    return adj, degrees
+    return _random_edges(adj, k_keep, n_random, seed), np.full(n, r, dtype=np.int32)
 
 
 def encode_pq(vectors: np.ndarray, pq, device, block: int = 65536) -> np.ndarray:

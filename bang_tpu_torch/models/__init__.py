@@ -1,2 +1,2 @@
-"""Search models of the port: the device index, the traversal loop and the
-in-memory variant."""
+"""Search models of the port: the device index, the traversal loop, entry
+selection and the in-memory and exact-distance variants."""

@@ -13,38 +13,27 @@ import torch
 
 from bang_tpu.utils.config import SearchParams
 from bang_tpu_torch.device import assert_exact_float32
+from bang_tpu_torch.models.entry import entry_points
 from bang_tpu_torch.models.index import DeviceIndex
 from bang_tpu_torch.models.traversal import (
     SearchStats,
+    check_params,
     make_pq_distance_fn,
     rerank_topk,
     run_traversal,
 )
 
 
-def _check_params(params: SearchParams) -> None:
-    if params.visited_mode != "exact":
-        raise NotImplementedError(
-            "visited_mode='bloom' is not ported yet (ROADMAP Queue 1 item 15)"
-        )
-    if params.entry_mode != "medoid":
-        raise NotImplementedError(
-            "entry_mode='sampled' is not ported yet (ROADMAP Queue 1 item 9, "
-            "models/entry.py)"
-        )
-    if params.pq_impl != "auto":
-        raise ValueError(
-            f"pq_impl={params.pq_impl!r} names a JAX kernel; the port picks "
-            "its kernel from the index layout and the tensors' device"
-        )
-
-
 def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
     """Batched PQ-traversal search with exact re-rank on the index's device.
 
     queries: [Q, D] tensor or numpy array. Returns (ids [Q, k] int32,
-    dists [Q, k] f32 squared L2, SearchStats)."""
-    _check_params(params)
+    dists [Q, k] f32 squared L2, SearchStats).
+
+    Under entry_mode="sampled" the entries and their worklist seeds come
+    from exact distances to a strided sample (models/entry.py); the walk
+    itself still runs on PQ distances, as in the JAX package."""
+    check_params(params)
     assert_exact_float32()
     dev = index.vectors.device
     queries_f32 = torch.as_tensor(queries, device=dev).float()
@@ -52,9 +41,10 @@ def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
     distance_fn = make_pq_distance_fn(
         queries_f32, index.codebook, index.codes, fused_rows=index.fused_rows
     )
+    entry_ids, entry_dists = entry_points(index, queries_f32, params)
     final = run_traversal(
         index.adj, distance_fn, index.medoid, q, params.L, params.max_iters,
-        params.beam_width, dev,
+        params.beam_width, dev, entry_ids=entry_ids, entry_dists=entry_dists,
     )
     if params.rerank:
         ids, dists = rerank_topk(queries_f32, index.vectors, final.visited_ids,

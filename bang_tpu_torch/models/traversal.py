@@ -11,8 +11,10 @@ in the reference and DiskANN's ground truth).
 The loop runs on the host and reads `active.any()` back once per
 iteration, as the reference reads its `nextIter` flag (parANN.cu:595);
 removing that sync (CUDA graphs over blocks of iterations) is ROADMAP
-Queue 1 item 13. The bloom visited set and the exact-distance function of
-the JAX module belong to later slices.
+Queue 1 item 13. Two distance functions drive it: PQ table lookup
+(`make_pq_distance_fn`, kernels K1 and K2) and exact L2
+(`make_exact_distance_fn`, kernel K3). The bloom visited set belongs to a
+later slice.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from bang_tpu.constants import INVALID_ID
+from bang_tpu_torch.ops.exact_kernels import exact_frontier
 from bang_tpu_torch.ops.l2 import l2_distance_to_candidates
 from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_parents_beam
 from bang_tpu_torch.ops.pq import pq_distance_tables
@@ -71,6 +74,19 @@ class SearchStats:
     def __repr__(self):
         return (f"SearchStats(iters={self.iters}, n_expanded={self.n_expanded}, "
                 f"n_dist_comps={self.n_dist_comps})")
+
+
+def check_params(params) -> None:
+    """Raise on the SearchParams that the port's traversal does not take."""
+    if params.visited_mode != "exact":
+        raise NotImplementedError(
+            "visited_mode='bloom' is not ported yet (ROADMAP Queue 1 item 15)"
+        )
+    if params.pq_impl != "auto":
+        raise ValueError(
+            f"pq_impl={params.pq_impl!r} names a JAX kernel; the port picks "
+            "its kernel from the index layout and the tensors' device"
+        )
 
 
 def init_state(q: int, l: int, max_iters: int, entries: torch.Tensor,
@@ -155,19 +171,73 @@ def make_step(adj, distance_fn, beam: int = 1):
 
 
 def run_traversal(adj, distance_fn, medoid: int, q: int, l: int,
-                  max_iters: int, beam: int, device) -> TraversalState:
-    """Run the traversal from the shared medoid entry; returns the final
-    state. Stops after `max_iters` iterations or when no query has an
-    unvisited worklist entry left."""
+                  max_iters: int, beam: int, device, entry_ids=None,
+                  entry_dists=None) -> TraversalState:
+    """Run the traversal; returns the final state. Stops after `max_iters`
+    iterations or when no query has an unvisited worklist entry left.
+
+    By default every query enters at the shared `medoid`. entry_ids [Q] or
+    [Q, P<=beam] int32 (sampled-entry mode, models/entry.py) give per-query
+    entries instead, [Q, P] seeding P beam slots; entry_dists (same shape)
+    are their worklist-seed distances and are required with them."""
     step = make_step(adj, distance_fn, beam)
-    entry = torch.full((q, 1), medoid, dtype=torch.int32, device=device)
-    # the entry's distance: distance_fn's seed_fn when it has one (all
-    # queries share this one node, so no gather and no kernel is needed)
-    seed_fn = getattr(distance_fn, "seed_fn", distance_fn)
-    state = init_state(q, l, max_iters, entry, seed_fn(entry, None), beam)
+    if entry_ids is None:
+        entry = torch.full((q, 1), medoid, dtype=torch.int32, device=device)
+        # the entry's distance: distance_fn's seed_fn when it has one (all
+        # queries share this one node, so no gather and no kernel is needed)
+        seed_fn = getattr(distance_fn, "seed_fn", distance_fn)
+        entry_dists = seed_fn(entry, None)
+    else:
+        if entry_dists is None:
+            raise ValueError("entry_ids requires entry_dists")
+        entry = (entry_ids if entry_ids.ndim == 2 else entry_ids[:, None]).to(torch.int32)
+    state = init_state(q, l, max_iters, entry, entry_dists, beam)
     while state.it < max_iters and bool(state.active.any()):
         state = step(state)
     return state
+
+
+def make_exact_distance_fn(queries_f32, vectors, nbr_vecs=None,
+                           nbr_vec_norms=None, fused_vec_rows=None):
+    """Traversal distance: exact squared L2 against device-resident vectors
+    (BANG_Exactdistance behavior, parANN.cu:1139-1179). Three fetches:
+
+      scattered        `distance_fn(cand_ids, parents)` gathers each
+                       candidate's vector and recomputes its norm (one
+                       gather, exact in f32 for u8 data).
+      nbr_vecs         with nbr_vecs [N, R, D] and nbr_vec_norms [N, R], the
+                       candidates' vectors and norms are gathered per parent
+                       as two contiguous rows.
+      fused exact rows with fused_vec_rows [N, R*(8+D)] u8 (ops/l2.
+                       pack_exact_frontier_rows) it also carries
+                       `frontier_fn(parents)`, which runs K3
+                       (`exact_frontier`) on the ungathered rows and yields
+                       ids and distances at once, and the degree `r`.
+
+    There is no `seed_fn`: the shared entry's distance is distance_fn(entry,
+    None), the scattered fetch. The JAX function's `vector_norms` argument
+    is not taken: no fetch reads it."""
+    d = queries_f32.shape[-1]
+
+    def distance_fn(cand_ids, parents=None):
+        if nbr_vecs is not None and parents is not None:
+            q = cand_ids.shape[0]
+            p = parents.long()
+            vecs = nbr_vecs[p].reshape(q, -1, d)
+            norms = nbr_vec_norms[p].reshape(q, -1)
+        else:
+            vecs = vectors[cand_ids.long()]  # [Q, C, D] gather
+            norms = None
+        return l2_distance_to_candidates(queries_f32, vecs, norms)
+
+    if fused_vec_rows is not None:
+        distance_fn.r = fused_vec_rows.shape[1] // (8 + d)
+
+        def frontier_fn(parents):
+            return exact_frontier(queries_f32, fused_vec_rows, parents)
+
+        distance_fn.frontier_fn = frontier_fn
+    return distance_fn
 
 
 def make_pq_distance_fn(queries_f32, codebook, codes, fused_rows=None):

@@ -8,7 +8,12 @@ build takes seconds, not minutes.
 The build runs at first use into `bang_tpu_torch/_build/` (listed in
 .gitignore), one shared library per source, named by a hash of the source
 and the flags: a changed source rebuilds, an unchanged one is loaded as is.
-nvcc is found through `torch.utils.cpp_extension.CUDA_HOME`.
+`build_libraries` starts one nvcc per missing source, all at once, so
+several kernels build in the time of the slowest. nvcc is found through
+`torch.utils.cpp_extension.CUDA_HOME`.
+
+Also here: the argument checks and the device routing that every kernel
+wrapper shares (`check_tensor`, `route`).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import os
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -37,6 +44,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "pq_lookup": (_P, _P, _P, _I, _I, _I, _P),
     "frontier_lookup": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P),
+    "exact_frontier": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -66,40 +74,69 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if needed and return the loaded library, with
-    `<name>_launch`'s argtypes and restype set."""
-    lib = _LOADED.get(name)
-    if lib is not None:
-        return lib
-    out = library_path(name)
-    t0 = time.perf_counter()
-    log = ""
-    cached = out.exists()
-    if not cached:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = nvcc_command(SRC_DIR / f"{name}.cu", tmp, nvcc_path())
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name}.cu (rc {res.returncode}):\n"
-                f"{' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    lib = ctypes.CDLL(str(out))
+def _start_nvcc(name: str):
+    """Start nvcc for `csrc/<name>.cu` into a temporary file; returns
+    (process, temporary path, command)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+    cmd = nvcc_command(SRC_DIR / f"{name}.cu", tmp, nvcc_path())
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, cmd
+
+
+def _finish_nvcc(name: str, proc, tmp, cmd) -> str:
+    """Wait for one nvcc, move its library into place; returns its log."""
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{log}"
+        )
+    os.replace(tmp, library_path(name))  # atomic: a concurrent loader sees all or nothing
+    return log
+
+
+def _load(name: str, seconds: float, cached: bool, log: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(library_path(name)))
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = list(SIGNATURES[name])
     fn.restype = ctypes.c_int
     err_str = getattr(lib, f"{name}_error_string")
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
-    BUILD_INFO[name] = {
-        "seconds": time.perf_counter() - t0, "cached": cached, "log": log,
-    }
+    BUILD_INFO[name] = {"seconds": seconds, "cached": cached, "log": log}
     _LOADED[name] = lib
     return lib
+
+
+def build_libraries(names) -> None:
+    """Build and load every kernel in `names` that is not loaded yet: one
+    nvcc per missing library, all started together, then all awaited."""
+    todo = [n for n in names if n not in _LOADED]
+    t0 = time.perf_counter()
+    started = {}
+    try:
+        for n in todo:
+            if not library_path(n).exists():
+                started[n] = _start_nvcc(n)
+        logs = {n: _finish_nvcc(n, *job) for n, job in started.items()}
+    finally:
+        for proc, _, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    for n in todo:
+        _load(n, secs, n not in started, logs.get(n, ""))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build `csrc/<name>.cu` if needed and return the loaded library, with
+    `<name>_launch`'s argtypes and restype set."""
+    if name not in _LOADED:
+        build_libraries([name])
+    return _LOADED[name]
 
 
 def check_launch(name: str, err: int) -> None:
@@ -107,3 +144,26 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         msg = getattr(_LOADED[name], f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def check_tensor(name, t, dtype, ndim) -> None:
+    """Raise unless `t` is a contiguous `ndim`-d tensor of `dtype`."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype or t.ndim != ndim:
+        raise ValueError(
+            f"{name} must be a {ndim}-d {dtype} tensor, got {t.ndim}-d {t.dtype}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def route(*tensors) -> str:
+    """'cpu' or 'cuda' for tensors that all sit on one device; raise else."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type

@@ -15,7 +15,8 @@ its kernel does not take. For tensors on the CPU it returns its plain
 version (`pq_lookup_plain`, `frontier_lookup_plain`); for CUDA tensors it
 launches the kernel or raises — there is no fallback. `<wrapper>.launches`
 counts kernel launches, so a run can show that its main path went through
-the kernels.
+the kernels; `reset_launch_counts` zeroes all of them, K3 `exact_frontier`
+(ops/exact_kernels.py) included.
 
 Tables stay f32: the JAX kernels' bf16-pair packing (`pack_tables`) fits a
 TPU lane register and is not ported.
@@ -26,7 +27,9 @@ from __future__ import annotations
 import torch
 
 from bang_tpu.constants import MAX_R
+from bang_tpu_torch.ops._build import check_tensor, route
 from bang_tpu_torch.ops.adjacency import decode_adj_planes, pack_adj_planes
+from bang_tpu_torch.ops.exact_kernels import exact_frontier
 from bang_tpu_torch.ops.pq import pq_lookup as pq_lookup_plain
 
 # A block stages one query's m x 256 f32 table in shared memory; an H100
@@ -70,30 +73,8 @@ def frontier_lookup_plain(tables, fused_rows, parents):
     return ids, pq_lookup_plain(tables, codes)
 
 
-def _check(name, t, dtype, ndim):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != dtype or t.ndim != ndim:
-        raise ValueError(
-            f"{name} must be a {ndim}-d {dtype} tensor, got {t.ndim}-d {t.dtype}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _route(*tensors) -> str:
-    """'cpu' or 'cuda' for tensors that all sit on one device; raise else."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type
-
-
 def _check_tables(tables):
-    _check("tables", tables, torch.float32, 3)
+    check_tensor("tables", tables, torch.float32, 3)
     q, m, nc = tables.shape
     if nc != 256:
         raise ValueError(f"tables must be [Q, m, 256], got {tuple(tables.shape)}")
@@ -111,12 +92,12 @@ def pq_lookup(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     tables: [Q, m, 256] f32; codes: [Q, C, m] u8 (gathered per candidate);
     both contiguous, on one device. Returns [Q, C] f32."""
     q, m = _check_tables(tables)
-    _check("codes", codes, torch.uint8, 3)
+    check_tensor("codes", codes, torch.uint8, 3)
     if codes.shape[0] != q or codes.shape[2] != m:
         raise ValueError(
             f"codes {tuple(codes.shape)} do not match tables {tuple(tables.shape)}"
         )
-    if _route(tables, codes) == "cpu":
+    if route(tables, codes) == "cpu":
         return pq_lookup_plain(tables, codes)
     from bang_tpu_torch.ops import _build
 
@@ -148,8 +129,8 @@ def frontier_lookup(tables: torch.Tensor, fused_rows: torch.Tensor,
     contiguous, on one device. Returns (ids [Q, beam*R] i32, dists
     [Q, beam*R] f32)."""
     q, m = _check_tables(tables)
-    _check("fused_rows", fused_rows, torch.uint8, 2)
-    _check("parents", parents, torch.int32, 2)
+    check_tensor("fused_rows", fused_rows, torch.uint8, 2)
+    check_tensor("parents", parents, torch.int32, 2)
     n, row_w = fused_rows.shape
     r, rem = divmod(row_w, 4 + m)
     if rem or not 1 <= r <= MAX_R:
@@ -162,7 +143,7 @@ def frontier_lookup(tables: torch.Tensor, fused_rows: torch.Tensor,
         raise ValueError(
             f"parents {tuple(parents.shape)} must be [Q={q}, beam<={MAX_BEAM}]"
         )
-    if _route(tables, fused_rows, parents) == "cpu":
+    if route(tables, fused_rows, parents) == "cpu":
         return frontier_lookup_plain(tables, fused_rows, parents)
     from bang_tpu_torch.ops import _build
 
@@ -184,9 +165,11 @@ def frontier_lookup(tables: torch.Tensor, fused_rows: torch.Tensor,
 
 frontier_lookup.launches = 0
 
-KERNELS = (pq_lookup, frontier_lookup)
+# every kernel wrapper of the port, K3 (ops/exact_kernels) included
+KERNELS = (pq_lookup, frontier_lookup, exact_frontier)
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counts of every kernel in KERNELS."""
     for k in KERNELS:
         k.launches = 0

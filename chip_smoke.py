@@ -6,24 +6,40 @@
 Phases, each printing progress; any failure raises and exits non-zero:
   1. device   — require CUDA; print the card's name and power limit
                 (nvidia-smi), torch, CUDA and nvcc versions.
-  2. build    — build both kernels from bang_tpu_torch/csrc with nvcc.
-  3. kernels  — K1 pq_lookup and K2 frontier_lookup against their plain
-                PyTorch versions on the card at the main path's shape and
-                three others: ids bit-exact, distances within rtol 1e-5 plus
-                atol 1e-5 x the row's largest distance (f32 summation order
-                is all that differs). Times both at the main path's shape.
+  2. build    — build the three kernels from bang_tpu_torch/csrc, one nvcc
+                per source, all started together.
+  3. kernels  — K1 pq_lookup, K2 frontier_lookup and K3 exact_frontier
+                against their plain PyTorch versions on the card at the main
+                paths' shapes and others: ids bit-exact; K1/K2 distances
+                within rtol 1e-5 plus atol 1e-5 x the row's largest distance
+                (f32 summation order is all that differs); K3 distances
+                bit-exact for integer queries at D <= 128 (every partial sum
+                is an integer below 2^24), else within rtol 1e-5 plus atol
+                1e-5 x (||q||^2 + the row's largest norm). Times each at its
+                main path's shape.
   4. bundle   — build the bench's headline bundle on the card with the
                 port's builders (bench.py's settings: 1M x 128 u8 clustered
-                data, 10K queries at noise 2.0, pruned-kNN R=64, PQ m=64) and
-                write it in the reference's file formats to a temp dir.
+                data, 10K queries at noise 2.0, Vamana R=64 l_build 48 batch
+                4096 alpha 1.44 2 passes, PQ m=64) and write it in the
+                reference's file formats to a temp dir.
   5. search   — BANGSearch("inmemory") on the fused-row layout (K2), L in
                 {32, 64, 128, 256, 512}, beam 2, extra_iters 11: recall@10,
                 iterations, wall time and QPS; recall@10 >= 90 at the best L.
   6. scattered — the same bundle on the scattered-codes layout (K1) at the
                 best L: recall within 0.5 points of phase 5.
-The kernels' launch counters are zeroed just before phase 5 and read after
-phase 6. The second-to-last line is a JSON object describing each kernel;
-the last is {"ok": true, "device": {...}}.
+  7. exact    — BANGSearch("exactdistance") on the fused exact rows (K3),
+                L in {10, 16, 30, 60, 100}, beam 1, extra_iters 6: recall@10
+                >= 90 at the best L; no re-rank, so the distances checked are
+                K3's own.
+  8. exact scattered — the scattered exact layout (plain fetch, no kernel)
+                at the best L: ids identical to phase 7 for every query.
+  9. sampled  — entry_mode="sampled" at each variant's best L (K3, K2):
+                recall@10 >= 90; and at its sweep's smallest L. Both printed
+                beside the medoid runs.
+Each search phase zeroes every launch count just before it and reads them
+just after: the kernels of its path must have launched and no other. The
+second-to-last line is a JSON object describing each kernel, with the
+launches summed over phases 5-9; the last is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -36,23 +52,38 @@ import numpy as np
 import torch
 
 N, D, Q, K = 1_000_000, 128, 10_000, 10
-R, M, BEAM, EXTRA = 64, 64, 2, 11
+R, M = 64, 64
+# bench.py's operating points (VARIANT_CONFIGS) and Vamana settings
+BEAM_EXTRA = {"inmemory": (2, 11), "exactdistance": (1, 6)}
 L_SWEEP = (32, 64, 128, 256, 512)
+EXACT_L_SWEEP = (10, 16, 30, 60, 100)
+VAMANA = {"l_build": 48, "batch": 4096, "alpha": 1.44, "n_passes": 2, "seed": 0}
 RECALL_TARGET = 90.0
 SCATTERED_RECALL_GAP = 0.5
 
 # (label, Q, N rows, R, m, beam, ids drawn below): the main path's shape,
 # then the other shapes the kernels must take.
 KERNEL_SHAPES = (
-    ("main Q=10K R=64 m=64 beam=2", Q, N, R, M, BEAM, N),
+    ("main Q=10K R=64 m=64 beam=2", Q, N, R, M, 2, N),
     ("R=32 m=32", Q, 200_000, 32, 32, 2, 200_000),
     ("R=24 m=12 beam=4", 4096, 100_000, 24, 12, 4, 100_000),
     ("ids up to 2^30", 4096, 50_000, 64, 64, 2, 1 << 30),
+)
+# K3: (label, Q, N rows, R, D, beam, ids drawn below, integer queries)
+EXACT_SHAPES = (
+    ("main Q=10K R=64 D=128 beam=1", Q, N, R, D, 1, N, True),
+    ("R=32 D=96 beam=4", 4096, 200_000, 32, 96, 4, 200_000, True),
+    ("R=24 D=100 beam=2", 4096, 100_000, 24, 100, 2, 100_000, True),
+    ("ids up to 2^30", 4096, 50_000, 64, 128, 2, 1 << 30, True),
+    ("non-integer queries", 4096, 100_000, 64, 128, 1, 100_000, False),
+    ("R=16 D=45 beam=3 (byte loads)", 4096, 50_000, 16, 45, 3, 50_000, True),
 )
 KERNEL_SOURCES = {
     "pq_lookup": ("bang_tpu_torch/csrc/pq_lookup.cu", "bang_tpu/ops/pq_pallas.py:74"),
     "frontier_lookup": ("bang_tpu_torch/csrc/frontier_lookup.cu",
                         "bang_tpu/ops/pq_pallas.py:267"),
+    "exact_frontier": ("bang_tpu_torch/csrc/exact_frontier.cu",
+                       "bang_tpu/ops/pq_pallas.py:564"),
 }
 
 
@@ -83,8 +114,8 @@ def phase_build():
     from bang_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    _build.build_libraries(KERNEL_SOURCES)
     for name in KERNEL_SOURCES:
-        _build.load_library(name)
         info = _build.BUILD_INFO[name]
         ptxas = [ln.strip() for ln in info["log"].splitlines() if "ptxas info" in ln]
         log(f"built {name} in {info['seconds']:.2f}s (cached={info['cached']}): "
@@ -135,6 +166,81 @@ def _time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def _time_pair(result, name, label, kern, plain):
+    """Time a kernel and its plain version in the order plain, kernel,
+    kernel, plain; record the means."""
+    p1, k1, k2, p2 = _time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain)
+    result[name]["ms"] = (k1 + k2) / 2
+    result[name]["plain_ms"] = (p1 + p2) / 2
+    log(f"time {name} at {label}: kernel {k1:.4f} / {k2:.4f} ms, "
+        f"plain {p1:.4f} / {p2:.4f} ms")
+
+
+def _exact_rows(gen, n, r, d, id_hi, dev, block=65_536):
+    """Fused exact rows [n, R*(8+D)] in the layout of
+    ops/l2.pack_exact_frontier_rows, from random ids below `id_hi` and
+    random u8 vectors whose norm planes hold their true squared norms;
+    built in row blocks on `dev`."""
+    from bang_tpu_torch.ops.adjacency import pack_adj_planes
+
+    rows = torch.empty((n, r * (8 + d)), dtype=torch.uint8, device=dev)
+    for s in range(0, n, block):
+        b = min(block, n - s)
+        ids = torch.randint(0, id_hi, (b, r), generator=gen, device=dev,
+                            dtype=torch.int32)
+        vecs = torch.randint(0, 256, (b, r, d), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        norms = (vecs.float() ** 2).sum(-1)
+        rows[s : s + b] = torch.cat([pack_adj_planes(ids),
+                                     pack_adj_planes(norms.view(torch.int32)),
+                                     vecs.reshape(b, r * d)], dim=1)
+    return rows
+
+
+def phase_exact_kernel(gen, dev, result):
+    """K3 against exact_frontier_plain at EXACT_SHAPES; times the first."""
+    from bang_tpu_torch.ops import exact_kernels as ek
+    from bang_tpu_torch.ops.l2 import decode_exact_frontier_rows
+
+    for i, (label, q, n, r, d, beam, id_hi, integer) in enumerate(EXACT_SHAPES):
+        rows = _exact_rows(gen, n, r, d, id_hi, dev)
+        parents = torch.randint(0, n, (q, beam), generator=gen, device=dev,
+                                dtype=torch.int32)
+        if integer:
+            queries = torch.randint(0, 256, (q, d), generator=gen, device=dev).float()
+        else:
+            queries = torch.rand((q, d), generator=gen, device=dev) * 255.0
+        got_ids, got_d = ek.exact_frontier(queries, rows, parents)
+        torch.cuda.synchronize()
+        want_ids, want_d = ek.exact_frontier_plain(queries, rows, parents)
+        if not torch.equal(got_ids, want_ids):
+            raise AssertionError(f"exact_frontier {label}: ids differ")
+        if id_hi > 1 << 24 and int(got_ids.max()) < 1 << 24:
+            raise AssertionError(f"exact_frontier {label}: id plane 3 never set")
+        err = (got_d - want_d).abs()
+        if integer and d <= 128:
+            if not torch.equal(got_d, want_d):
+                raise AssertionError(f"exact_frontier {label}: distances not "
+                                     f"bit-exact, max err {float(err.max())}")
+        else:
+            norms = decode_exact_frontier_rows(rows[parents.long()], r, d)[1]
+            scale = (queries ** 2).sum(1, keepdim=True) + norms.amax(1, keepdim=True)
+            bad = int((err > 1e-5 * want_d.abs() + 1e-5 * scale).sum())
+            if bad or not torch.isfinite(got_d).all():
+                raise AssertionError(f"exact_frontier {label}: {bad} distances "
+                                     f"out of tolerance, max err {float(err.max())}")
+        e3 = float(err.max())
+        result["exact_frontier"]["max_abs_err"] = max(
+            result["exact_frontier"]["max_abs_err"], e3)
+        log(f"kernels exact {label}: ids exact, max abs err K3 {e3:.3g}")
+        if i == 0:
+            _time_pair(result, "exact_frontier", label,
+                       lambda: ek.exact_frontier(queries, rows, parents),
+                       lambda: ek.exact_frontier_plain(queries, rows, parents))
+        del rows, parents, queries, got_ids, got_d, want_ids, want_d, err
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(dev):
     from bang_tpu_torch.ops import pq_kernels as pk
 
@@ -160,34 +266,27 @@ def phase_kernels(dev):
             result["frontier_lookup"]["max_abs_err"], e2)
         log(f"kernels {label}: ids exact, max abs err K1 {e1:.3g} K2 {e2:.3g}")
 
-        if i == 0:  # time at the main path's shape: plain, kernel, kernel, plain
-            runs = {
-                "pq_lookup": (lambda: pk.pq_lookup(tables, codes),
-                              lambda: pk.pq_lookup_plain(tables, codes)),
-                "frontier_lookup": (
-                    lambda: pk.frontier_lookup(tables, rows, parents),
-                    lambda: pk.frontier_lookup_plain(tables, rows, parents)),
-            }
-            for name, (kern, plain) in runs.items():
-                p1, k1, k2, p2 = (_time_ms(plain), _time_ms(kern),
-                                  _time_ms(kern), _time_ms(plain))
-                result[name]["ms"] = (k1 + k2) / 2
-                result[name]["plain_ms"] = (p1 + p2) / 2
-                log(f"time {name} at {label}: kernel {k1:.4f} / {k2:.4f} ms, "
-                    f"plain {p1:.4f} / {p2:.4f} ms")
+        if i == 0:  # time at the main path's shape
+            _time_pair(result, "pq_lookup", label,
+                       lambda: pk.pq_lookup(tables, codes),
+                       lambda: pk.pq_lookup_plain(tables, codes))
+            _time_pair(result, "frontier_lookup", label,
+                       lambda: pk.frontier_lookup(tables, rows, parents),
+                       lambda: pk.frontier_lookup_plain(tables, rows, parents))
         del tables, rows, parents, ids, codes, got_ids, got_d, want_ids, want_d, got
         torch.cuda.empty_cache()
+    phase_exact_kernel(gen, dev, result)
     return result
 
 
 def build_bundle(prefix, dev, n=N, d=D, q=Q, r=R, m=M):
-    """The bench's headline bundle (bench.py build_bundle, graph='pruned'),
+    """The bench's headline bundle (bench.py build_bundle, graph='vamana'),
     built with the port's builders on `dev`; returns stage seconds."""
     from bang_tpu.formats import synthetic
     from bang_tpu.formats.bin_io import save_bin, save_truthset
     from bang_tpu.formats.graph import GraphIndex, save_graph_index
     from bang_tpu.formats.pq import save_pq
-    from bang_tpu_torch.formats import accel
+    from bang_tpu_torch.formats import accel, vamana
 
     t = {}
     t0 = time.perf_counter()
@@ -211,13 +310,12 @@ def build_bundle(prefix, dev, n=N, d=D, q=Q, r=R, m=M):
 
     gt_ids, gt_dists = stage("groundtruth", lambda: accel.compute_groundtruth(
         data, queries.astype(np.float32), 100, dev))
-    adj, degrees = stage("graph", lambda: accel.build_pruned_knn_graph(
-        data, r, dev, n_random=r // 8, seed=0, block=2048))
+    adj, degrees, medoid = stage("graph", lambda: vamana.build_vamana_graph(
+        data, r, dev, **VAMANA))
     pq = stage("pq_train", lambda: synthetic.train_pq(data, m, seed=0))
     pq.codes = stage("pq_encode", lambda: accel.encode_pq(data, pq, dev))
 
     def save():
-        medoid = synthetic.medoid_of(data)
         save_graph_index(prefix, GraphIndex(data, adj, degrees, medoid))
         save_pq(prefix, pq)
         save_bin(prefix + "_query.bin", queries)
@@ -241,12 +339,14 @@ def _check_output(ids, dists, queries, vectors, n):
     qs = queries[:200].astype(np.float64)
     ref = ((vectors[ids[:200]].astype(np.float64) - qs[:, None]) ** 2).sum(-1)
     if not np.allclose(dists[:200], ref, rtol=1e-6, atol=1e-3):
-        raise AssertionError(f"re-ranked distances off the reference by "
+        raise AssertionError(f"returned distances off the reference by "
                              f"{np.abs(dists[:200] - ref).max()}")
 
 
-def run_search(prefix, dev, l_values, fused_frontier=None):
-    """BANGSearch("inmemory") over `l_values`; one row per L."""
+def run_search(prefix, dev, variant, l_values, fused_frontier=None,
+               entry_mode="medoid"):
+    """BANGSearch(variant) over `l_values` at bench.py's beam and
+    extra_iters; one row per L (with the returned ids)."""
     from bang_tpu.formats.bin_io import load_bin, load_truthset
     from bang_tpu.formats.graph import load_graph_index
     from bang_tpu.utils.recall import calculate_recall
@@ -255,14 +355,19 @@ def run_search(prefix, dev, l_values, fused_frontier=None):
     queries = load_bin(prefix + "_query.bin", np.uint8)
     gt_ids, gt_dists = load_truthset(prefix + "_gt.bin")
     vectors = load_graph_index(prefix).vectors
-    s = BANGSearch("inmemory", device=dev)
+    beam, extra = BEAM_EXTRA[variant]
+    s = BANGSearch(variant, device=dev)
     t0 = time.perf_counter()
     s.bang_load(prefix, fused_frontier=fused_frontier)
-    layout = "fused" if s._index.fused_rows is not None else "scattered"
-    log(f"bang_load {layout} layout in {time.perf_counter() - t0:.1f}s")
+    ix = s._index
+    fused = ix.fused_rows is not None or ix.fused_vec_rows is not None
+    layout = "fused" if fused else "scattered"
+    label = f"{variant} {layout} {entry_mode}"
+    log(f"bang_load {variant} {layout} layout in {time.perf_counter() - t0:.1f}s")
     rows = []
     for L in l_values:
-        s.bang_set_searchparams(K, L, beam_width=BEAM, extra_iters=EXTRA)
+        s.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra,
+                                entry_mode=entry_mode)
         s.bang_alloc(len(queries))
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -270,58 +375,111 @@ def run_search(prefix, dev, l_values, fused_frontier=None):
         ids, dists = s.bang_query(queries)  # host arrays: the device is done
         wall = time.perf_counter() - t0
         _check_output(ids, dists, queries, vectors, len(vectors))
-        row = {"layout": layout, "L": L,
+        row = {"search": label, "L": L,
                "recall": calculate_recall(gt_ids, ids, K, gt_dists),
                "iters": s.last_stats.iters, "wall_s": wall,
-               "qps": len(queries) / wall}
-        log(f"search {layout} L={L} recall@10={row['recall']:.2f} "
+               "qps": len(queries) / wall, "ids": ids}
+        log(f"search {label} L={L} recall@10={row['recall']:.2f} "
             f"iters={row['iters']} wall={wall:.4f}s qps={row['qps']:.1f}")
         rows.append(row)
     s.bang_unload()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return rows
+
+
+def counted(label, launched, fn, totals):
+    """Run one search phase with every launch count zeroed just before and
+    read just after; fail unless exactly the kernels named in `launched`
+    ran. Adds the counts to `totals`."""
+    from bang_tpu_torch.ops import pq_kernels as pk
+
+    pk.reset_launch_counts()
+    out = fn()
+    counts = {k.__name__: k.launches for k in pk.KERNELS}
+    log(f"{label}: launches {counts}")
+    if any((c > 0) != (name in launched) for name, c in counts.items()):
+        raise AssertionError(f"{label}: launches {counts}, expected only {launched}")
+    for name, c in counts.items():
+        totals[name] += c
+    return out
+
+
+def _best(rows, what):
+    best = max(rows, key=lambda row: row["recall"])
+    if best["recall"] < RECALL_TARGET:
+        raise AssertionError(f"{what}: best recall@10 {best['recall']:.2f} "
+                             f"< {RECALL_TARGET}")
+    return best
+
+
+def search_phases(dev):
+    """Phases 4-9 on `dev`; returns the launch counts summed over 5-9."""
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        prefix = os.path.join(tmp, "synth1m")
+        build_bundle(prefix, dev)
+
+        fused = counted("search inmemory fused", {"frontier_lookup"},
+                        lambda: run_search(prefix, dev, "inmemory", L_SWEEP), totals)
+        best = _best(fused, "inmemory fused")
+        scattered = counted("search inmemory scattered", {"pq_lookup"},
+                            lambda: run_search(prefix, dev, "inmemory", (best["L"],),
+                                               fused_frontier=False), totals)[0]
+        if abs(scattered["recall"] - best["recall"]) > SCATTERED_RECALL_GAP:
+            raise AssertionError(f"scattered recall {scattered['recall']:.2f} vs "
+                                 f"fused {best['recall']:.2f}")
+
+        exact = counted("search exactdistance fused", {"exact_frontier"},
+                        lambda: run_search(prefix, dev, "exactdistance", EXACT_L_SWEEP),
+                        totals)
+        best_e = _best(exact, "exactdistance fused")
+        exact_sc = counted("search exactdistance scattered", set(),
+                           lambda: run_search(prefix, dev, "exactdistance",
+                                              (best_e["L"],), fused_frontier=False),
+                           totals)[0]
+        same = (exact_sc["ids"] == best_e["ids"]).all(axis=1)
+        if not same.all():
+            raise AssertionError(f"exact scattered ids differ from fused on "
+                                 f"{int((~same).sum())} queries")
+
+        # at the best L and at the sweep's smallest, where the entry matters
+        samp_e = counted("search exactdistance sampled", {"exact_frontier"},
+                         lambda: run_search(prefix, dev, "exactdistance",
+                                            sorted({EXACT_L_SWEEP[0], best_e["L"]}),
+                                            entry_mode="sampled"), totals)
+        samp = counted("search inmemory sampled", {"frontier_lookup"},
+                       lambda: run_search(prefix, dev, "inmemory",
+                                          sorted({L_SWEEP[0], best["L"]}),
+                                          entry_mode="sampled"), totals)
+        for medoid_rows, rows in ((exact, samp_e), (fused, samp)):
+            for row in rows:
+                m = next(r for r in medoid_rows if r["L"] == row["L"])
+                log(f"entry at L={row['L']}: {row['search']} recall@10 "
+                    f"{row['recall']:.2f} iters {row['iters']} | medoid recall@10 "
+                    f"{m['recall']:.2f} iters {m['iters']}")
+            if rows[-1]["recall"] < RECALL_TARGET:
+                raise AssertionError(f"{rows[-1]['search']}: recall@10 "
+                                     f"{rows[-1]['recall']:.2f} < {RECALL_TARGET}")
+    log(f"ok: inmemory best L={best['L']} recall@10 {best['recall']:.2f}, "
+        f"scattered {scattered['recall']:.2f}; exactdistance best L={best_e['L']} "
+        f"recall@10 {best_e['recall']:.2f}, scattered ids identical")
+    return totals
 
 
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
     import bang_tpu_torch  # noqa: F401  (TF32 off)
-    from bang_tpu_torch.ops import pq_kernels as pk
 
     phase_build()
     kern = phase_kernels(dev)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        prefix = os.path.join(tmp, "synth1m")
-        build_bundle(prefix, dev)
+    totals = search_phases(dev)
+    log(f"on {smi}")
 
-        pk.reset_launch_counts()
-        fused = run_search(prefix, dev, L_SWEEP)
-        best = max(fused, key=lambda row: row["recall"])
-        if best["recall"] < RECALL_TARGET:
-            raise AssertionError(f"best recall@10 {best['recall']:.2f} < {RECALL_TARGET}")
-        if pk.frontier_lookup.launches == 0 or pk.pq_lookup.launches != 0:
-            raise AssertionError(
-                f"fused search launches: frontier_lookup "
-                f"{pk.frontier_lookup.launches}, pq_lookup {pk.pq_lookup.launches}")
-        k2_launches = pk.frontier_lookup.launches
-        torch.cuda.empty_cache()
-
-        scattered = run_search(prefix, dev, (best["L"],), fused_frontier=False)[0]
-        if pk.pq_lookup.launches == 0 or pk.frontier_lookup.launches != k2_launches:
-            raise AssertionError(
-                f"scattered search launches: pq_lookup {pk.pq_lookup.launches}, "
-                f"frontier_lookup {pk.frontier_lookup.launches - k2_launches}")
-        gap = abs(scattered["recall"] - best["recall"])
-        if gap > SCATTERED_RECALL_GAP:
-            raise AssertionError(f"scattered recall {scattered['recall']:.2f} vs "
-                                 f"fused {best['recall']:.2f}")
-    log(f"ok: best L={best['L']} recall@10 {best['recall']:.2f}; scattered "
-        f"recall@10 {scattered['recall']:.2f}; on {smi}")
-
-    launches = {"pq_lookup": pk.pq_lookup.launches,
-                "frontier_lookup": pk.frontier_lookup.launches}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": kern[name]["max_abs_err"],
+         "launches": totals[name], "max_abs_err": kern[name]["max_abs_err"],
          "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]}
         for name, (src, rep) in KERNEL_SOURCES.items()
     ]

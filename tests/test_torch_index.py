@@ -88,16 +88,27 @@ def test_index_from_jax_fused_layouts(layout):
     np.testing.assert_array_equal(fused.fused_rows.numpy(), flat)
 
 
-def test_layout_auto_selection_and_budget(tiny_index, monkeypatch):
+def test_layout_auto_selection_and_budget(tiny_index, monkeypatch, tmp_path):
     prefix = tiny_index["prefix"]
     g, pq = load_graph_index(prefix), load_pq(prefix)
     assert tindex.fused_layout_fits(g.n, g.r, pq.num_chunks)
     # 1M x 64 x (4+64) B = 4.35 GB fits the 80 GB card's budget; 100M does not
     assert tindex.fused_layout_fits(1_000_000, 64, 64)
     assert not tindex.fused_layout_fits(100_000_000, 64, 64)
+    # the exact variant's fused rows: 1M x 64 x (8+128) B = 8.70 GB fit
+    assert tindex.fused_exact_layout_fits(1_000_000, 64, 128)
+    assert not tindex.fused_exact_layout_fits(10_000_000, 64, 128)
     monkeypatch.setattr(tindex, "FUSED_LAYOUT_BUDGET", 1000)
     ix = tindex.device_index_from_files(prefix, "cpu")
     assert ix.fused_rows is None and ix.adj.dtype == torch.int32
     assert ix.adj.shape == (g.n, g.r)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tindex.device_index_from_files(prefix, "cpu", variant="exactdistance")
+        tindex.device_index_from_files(prefix, "cpu", variant="base")
+    # over the budget, u8 data falls back to the scattered exact layout
+    u8 = synthetic.build_synthetic_index(str(tmp_path / "u8"), n=600, dim=8, r=8, m=2,
+                                         n_queries=4, dtype=np.uint8, seed=2)
+    ex = tindex.device_index_from_files(u8["prefix"], "cpu", variant="exactdistance")
+    assert ex.fused_vec_rows is None and ex.adj.shape == (600, 8)
+    monkeypatch.undo()
+    ex = tindex.device_index_from_files(u8["prefix"], "cpu", variant="exactdistance")
+    assert ex.adj is None and ex.fused_vec_rows.shape == (600, 8 * (8 + 8))

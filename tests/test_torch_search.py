@@ -105,13 +105,16 @@ def test_api_returns_int64_and_rejects_unported(fused64_index):
     ids, dists = s.bang_query(queries[:5])
     assert ids.dtype == np.int64 and ids.shape == (5, 10)
     assert dists.dtype == np.float32 and np.isfinite(dists).all()
-    for variant in ("base", "exactdistance"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            BANGSearch(variant, device="cpu")
-    for kw in ({"visited_mode": "bloom"}, {"entry_mode": "sampled"}):
-        s.bang_set_searchparams(10, 16, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.bang_query(queries[:2])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BANGSearch("base", device="cpu")
+    assert BANGSearch("exactdistance", device="cpu").variant == "exactdistance"
+    with pytest.raises(ValueError, match="unknown variant"):
+        BANGSearch("exact", device="cpu")
+    s.bang_set_searchparams(10, 16, visited_mode="bloom")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        s.bang_query(queries[:2])
+    s.bang_set_searchparams(10, 16, entry_mode="sampled")
+    assert s.bang_query(queries[:2])[0].shape == (2, 10)
 
 
 def test_rerank_topk_breaks_ties_lowest_index_first():

@@ -34,6 +34,18 @@ with tempfile.TemporaryDirectory() as tmp:
     s.bang_set_searchparams(10, 16, beam_width=2)
     ids, dists = s.bang_query(load_bin(info["prefix"] + "_query.bin", np.float32))
     assert ids.dtype == np.int64 and ids.shape == (8, 10), ids.shape
+    data = synthetic.make_clustered_data(800, 8, n_clusters=4, dtype=np.uint8, seed=2)
+    from bang_tpu.formats.graph import GraphIndex, save_graph_index
+    from bang_tpu_torch.formats.vamana import build_vamana_graph
+    adj, degrees, medoid = build_vamana_graph(data, 8, "cpu", l_build=16,
+                                              batch=256, verbose=False)
+    save_graph_index(tmp + "/v", GraphIndex(data, adj, degrees, medoid))
+    e = BANGSearch("exactdistance", device="cpu")
+    e.bang_load(tmp + "/v")
+    assert e._index.fused_vec_rows is not None
+    e.bang_set_searchparams(5, 16)
+    ids, dists = e.bang_query(data[:3].astype(np.float32))
+    assert ids[:, 0].tolist() == [0, 1, 2] and (dists[:, 0] == 0).all(), ids
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print("no-jax search ok")
