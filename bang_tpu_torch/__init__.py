@@ -2,18 +2,22 @@
 
 The JAX package `bang_tpu` is the reference and stays as it is; this package
 mirrors its module paths and function names so each counterpart is found by
-name. It imports `torch` and never `jax`: the numpy-only layers of bang_tpu
-(`formats/{bin_io,graph,pq,synthetic,preprocess}.py`,
-`utils/{config,recall,logging}.py`, `constants.py`) are the on-disk
-contract both packages share, and the port imports them as they are.
+name. It stands alone: it imports `torch` and numpy, never `jax` and nothing
+of `bang_tpu`. What it needs of the JAX package's numpy layers it keeps as
+its own copies under the same names (`constants.py`,
+`formats/{bin_io,graph,pq,synthetic,preprocess}.py`,
+`utils/{config,recall,logging}.py`). Files are the contract between the two
+packages: the copies write the same bytes, and each package reads what the
+other wrote.
 
 Slices ported so far: the in-memory PQ search (BANG_Inmemory) and the
 exact-distance search (BANG_Exactdistance) end to end — PQ tables, the
 traversal loop with medoid or sampled entries, exact re-rank, the
-`BANGSearch("inmemory" | "exactdistance")` facade — and the builders a
-bench bundle needs, the Vamana graph included. Every Pallas kernel on those
-paths has a hand-written CUDA kernel under `csrc/` (see `ops/pq_kernels.py`
-and `ops/exact_kernels.py`).
+`BANGSearch("inmemory" | "exactdistance")` facade — the builders a bench
+bundle needs, the Vamana graph included, and the layout probes of the JAX
+package's `scripts/` (`bang_tpu_torch.scripts`). Every Pallas kernel of the
+repo has a hand-written CUDA kernel under `csrc/` (see `ops/pq_kernels.py`,
+`ops/exact_kernels.py` and `ops/probe_kernels.py`).
 
 Importing the package turns TF32 off for float32 matmuls and convolutions:
 the JAX path computes its tables and distances at `Precision.HIGHEST`.

@@ -17,11 +17,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from bang_tpu.constants import ENUM_DIST_L2, ENUM_DIST_MIPS
-from bang_tpu.formats.preprocess import preprocess_queries_mips
-from bang_tpu.utils.config import SearchParams
-from bang_tpu.utils.logging import log_message
+from bang_tpu_torch.constants import ENUM_DIST_L2, ENUM_DIST_MIPS
 from bang_tpu_torch.device import resolve_device
+from bang_tpu_torch.formats.preprocess import preprocess_queries_mips
+from bang_tpu_torch.utils.config import SearchParams
+from bang_tpu_torch.utils.logging import log_message
 
 # result ids are int64 on output for big-ann-benchmarks compatibility
 # (reference: result_ann_t = unsigned long, bang.h:23).

@@ -1,2 +1,4 @@
-"""Offline builders of the port (`accel`, `vamana`). File formats are the JAX
-package's numpy layers (`bang_tpu.formats`), shared as they are."""
+"""File formats and builders of the port. `bin_io`, `graph`, `pq`,
+`synthetic` and `preprocess` are the port's own copies of the JAX package's
+numpy layers (the port imports nothing of `bang_tpu`); they write the same
+bytes. `accel` and `vamana` build an index on the device."""

@@ -6,8 +6,8 @@ from bang_tpu/formats/vamana.py; the Vamana builder is formats/vamana.py).
 Blocked float32 matmuls (TF32 off) plus a top-k whose distance ties break
 lowest index first, like `lax.top_k`: u8 data gives integer distances and
 frequent ties, and `torch.topk` leaves their order unspecified. Output
-contracts are those of the JAX functions. PQ training stays the shared
-numpy `bang_tpu.formats.synthetic.train_pq`.
+contracts are those of the JAX functions. PQ training stays on the host:
+the port's numpy copy `formats/synthetic.train_pq`.
 """
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bang_tpu.formats.synthetic import _dedup_rows_self
 from bang_tpu_torch.device import assert_exact_float32, resolve_device
+from bang_tpu_torch.formats.synthetic import _dedup_rows_self
 from bang_tpu_torch.ops.l2 import squared_norms
 from bang_tpu_torch.ops.pq import prepare_pq_codebook
 

@@ -45,9 +45,9 @@ import time
 import numpy as np
 import torch
 
-from bang_tpu.formats.synthetic import medoid_of
 from bang_tpu_torch.device import assert_exact_float32, resolve_device
 from bang_tpu_torch.formats.accel import _robust_prune_batch
+from bang_tpu_torch.formats.synthetic import medoid_of
 from bang_tpu_torch.models.index import squared_norms_host
 from bang_tpu_torch.models.traversal import make_exact_distance_fn, run_traversal
 from bang_tpu_torch.ops.l2 import l2_distance_to_candidates, squared_norms

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import torch
 
-from bang_tpu.utils.config import SearchParams
 from bang_tpu_torch.device import assert_exact_float32
 from bang_tpu_torch.models.entry import entry_points
 from bang_tpu_torch.models.index import DeviceIndex
@@ -21,6 +20,7 @@ from bang_tpu_torch.models.traversal import (
     make_exact_distance_fn,
     run_traversal,
 )
+from bang_tpu_torch.utils.config import SearchParams
 
 
 def search_exact(index: DeviceIndex, queries, params: SearchParams):

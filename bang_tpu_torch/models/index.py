@@ -48,9 +48,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bang_tpu.formats.graph import GraphIndex, load_graph_index
-from bang_tpu.formats.pq import PQData, load_pq
 from bang_tpu_torch.device import resolve_device
+from bang_tpu_torch.formats.graph import GraphIndex, load_graph_index
+from bang_tpu_torch.formats.pq import PQData, load_pq
 from bang_tpu_torch.ops.l2 import pack_exact_frontier_rows
 from bang_tpu_torch.ops.pq import PQCodebook, prepare_pq_codebook
 from bang_tpu_torch.ops.pq_kernels import pack_frontier_rows

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import torch
 
-from bang_tpu.utils.config import SearchParams
 from bang_tpu_torch.device import assert_exact_float32
 from bang_tpu_torch.models.entry import entry_points
 from bang_tpu_torch.models.index import DeviceIndex
@@ -22,6 +21,7 @@ from bang_tpu_torch.models.traversal import (
     rerank_topk,
     run_traversal,
 )
+from bang_tpu_torch.utils.config import SearchParams
 
 
 def search_inmemory(index: DeviceIndex, queries, params: SearchParams):

@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from bang_tpu.constants import INVALID_ID
+from bang_tpu_torch.constants import INVALID_ID
 from bang_tpu_torch.ops.exact_kernels import exact_frontier
 from bang_tpu_torch.ops.l2 import l2_distance_to_candidates
 from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_parents_beam

@@ -45,6 +45,9 @@ SIGNATURES = {
     "pq_lookup": (_P, _P, _P, _I, _I, _I, _P),
     "frontier_lookup": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P),
     "exact_frontier": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P),
+    "lookup_packed": (_P, _P, _P, _I, _I, _I, _P),
+    "frontier_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "row_gather": (_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _P),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from bang_tpu.constants import MAX_R
+from bang_tpu_torch.constants import MAX_R
 from bang_tpu_torch.ops._build import check_tensor, route
 from bang_tpu_torch.ops.l2 import decode_exact_frontier_rows, l2_distance_to_candidates
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from bang_tpu.constants import INVALID_ID
+from bang_tpu_torch.constants import INVALID_ID
 
 
 def init_worklist(q: int, l: int, device):

@@ -90,6 +90,27 @@ def pq_distance_tables(codebook: PQCodebook, queries: torch.Tensor) -> torch.Ten
     return tables.contiguous()
 
 
+def pack_tables(tables: torch.Tensor) -> torch.Tensor:
+    """[Q, m, 256] f32 distance tables -> [Q, m, 128] int32 bf16 pairs, the
+    table form of the JAX package's Pallas kernels (`pq_pallas.pack_tables`)
+    and of kernels K4 and K5 (ops/probe_kernels.py).
+
+    f32 -> bf16 rounds to nearest even; word i of a row holds entry 2i in
+    its low half-word and entry 2i + 1 in its high one. Built by viewing the
+    bf16 row as int32 words (little-endian, as on the CPU and the card), so
+    no shift can overflow the sign bit. Bit-identical to the JAX packing."""
+    q, m, nc = tables.shape
+    if nc != 256:
+        raise ValueError(f"tables must be [Q, m, 256], got {tuple(tables.shape)}")
+    return tables.to(torch.bfloat16).contiguous().view(torch.int32)
+
+
+def unpack_tables(packed: torch.Tensor) -> torch.Tensor:
+    """[Q, m, 128] int32 bf16 pairs -> [Q, m, 256] f32 (exact: every bf16
+    value is an f32)."""
+    return packed.contiguous().view(torch.bfloat16).float()
+
+
 def pq_lookup(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Accumulate PQ distances: out[q, r] = sum_c tables[q, c, codes[q, r, c]].
 

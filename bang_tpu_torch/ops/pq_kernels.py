@@ -15,22 +15,26 @@ its kernel does not take. For tensors on the CPU it returns its plain
 version (`pq_lookup_plain`, `frontier_lookup_plain`); for CUDA tensors it
 launches the kernel or raises — there is no fallback. `<wrapper>.launches`
 counts kernel launches, so a run can show that its main path went through
-the kernels; `reset_launch_counts` zeroes all of them, K3 `exact_frontier`
-(ops/exact_kernels.py) included.
+the kernels; `reset_launch_counts` zeroes all of them: K3 `exact_frontier`
+(ops/exact_kernels.py) and K4-K6 (ops/probe_kernels.py) included.
 
-Tables stay f32: the JAX kernels' bf16-pair packing (`pack_tables`) fits a
-TPU lane register and is not ported.
+K1 and K2 stream f32 tables. The JAX kernels' bf16-pair form
+(`pack_tables`, `unpack_tables`; ops/pq.py, bit-identical to JAX's) is the
+table form of K4 and K5, the counterparts of the `scripts/` probes, which
+measure on the card what halving the table bytes buys.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bang_tpu.constants import MAX_R
+from bang_tpu_torch.constants import MAX_R
 from bang_tpu_torch.ops._build import check_tensor, route
 from bang_tpu_torch.ops.adjacency import decode_adj_planes, pack_adj_planes
 from bang_tpu_torch.ops.exact_kernels import exact_frontier
+from bang_tpu_torch.ops.pq import pack_tables, unpack_tables  # noqa: F401
 from bang_tpu_torch.ops.pq import pq_lookup as pq_lookup_plain
+from bang_tpu_torch.ops.probe_kernels import frontier_packed, lookup_packed, row_gather
 
 # A block stages one query's m x 256 f32 table in shared memory; an H100
 # block can use at most 227 KB (232,448 bytes) of it.
@@ -165,8 +169,10 @@ def frontier_lookup(tables: torch.Tensor, fused_rows: torch.Tensor,
 
 frontier_lookup.launches = 0
 
-# every kernel wrapper of the port, K3 (ops/exact_kernels) included
-KERNELS = (pq_lookup, frontier_lookup, exact_frontier)
+# every kernel wrapper of the port: K1-K2 here, K3 (ops/exact_kernels),
+# K4-K6 (ops/probe_kernels)
+KERNELS = (pq_lookup, frontier_lookup, exact_frontier, lookup_packed,
+           frontier_packed, row_gather)
 
 
 def reset_launch_counts() -> None:

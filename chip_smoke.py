@@ -6,7 +6,7 @@
 Phases, each printing progress; any failure raises and exits non-zero:
   1. device   — require CUDA; print the card's name and power limit
                 (nvidia-smi), torch, CUDA and nvcc versions.
-  2. build    — build the three kernels from bang_tpu_torch/csrc, one nvcc
+  2. build    — build the six kernels from bang_tpu_torch/csrc, one nvcc
                 per source, all started together.
   3. kernels  — K1 pq_lookup, K2 frontier_lookup and K3 exact_frontier
                 against their plain PyTorch versions on the card at the main
@@ -17,6 +17,18 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 is an integer below 2^24), else within rtol 1e-5 plus atol
                 1e-5 x (||q||^2 + the row's largest norm). Times each at its
                 main path's shape.
+  probes      — K4 lookup_packed, K5 frontier_packed (with and without id
+                planes) and K6 row_gather, the counterparts of the six
+                Pallas probes in scripts/, against their plain versions at
+                the probes' shape and at R=24 m=12 beam 4 with ids up to
+                2^30 (ids and gathered bytes bit-exact, distances as K1's:
+                the bf16 entries are the same, only the f32 summation order
+                may differ), K6 also at widths 5120, 4352 and 100 with odd
+                and out-of-range parents (zero rows); times each, K6 beside
+                torch.index_select. Then runs the five probe scripts
+                (bang_tpu_torch.scripts.exp_*.main("cuda")) at their own
+                sizes, each with the launch counts zeroed before and read
+                after: each must launch its kernels and no other.
   4. bundle   — build the bench's headline bundle on the card with the
                 port's builders (bench.py's settings: 1M x 128 u8 clustered
                 data, 10K queries at noise 2.0, Vamana R=64 l_build 48 batch
@@ -36,12 +48,14 @@ Phases, each printing progress; any failure raises and exits non-zero:
   9. sampled  — entry_mode="sampled" at each variant's best L (K3, K2):
                 recall@10 >= 90; and at its sweep's smallest L. Both printed
                 beside the medoid runs.
-Each search phase zeroes every launch count just before it and reads them
-just after: the kernels of its path must have launched and no other. The
-second-to-last line is a JSON object describing each kernel, with the
-launches summed over phases 5-9; the last is {"ok": true, "device": {...}}.
+Each probe script and each search phase zeroes every launch count just
+before it and reads them just after: the kernels of its path must have
+launched and no other. The second-to-last line is a JSON object describing
+each kernel (its launches summed over those runs, its bound from this run's
+byte and operation counts); the last is {"ok": true, "device": {...}}.
 """
 
+import importlib
 import json
 import os
 import subprocess
@@ -78,13 +92,38 @@ EXACT_SHAPES = (
     ("non-integer queries", 4096, 100_000, 64, 128, 1, 100_000, False),
     ("R=16 D=45 beam=3 (byte loads)", 4096, 50_000, 16, 45, 3, 50_000, True),
 )
+# K4/K5: (label, Q, N rows, R, m, beam, ids drawn below)
+PROBE_SHAPES = (
+    ("probes Q=10K R=64 m=64 beam=2", Q, N, R, M, 2, N),
+    ("R=24 m=12 beam=4, ids up to 2^30", 4096, 100_000, 24, 12, 4, 1 << 30),
+)
+GATHER_WIDTHS = (5120, 4352, 100)  # K6: TPU-tiled, flat PQ row, ragged
+# the probe scripts and the kernels each launches
+PROBE_SCRIPTS = (
+    ("exp_lookup", {"pq_lookup", "lookup_packed", "row_gather"}),
+    ("exp_flat_lookup", {"lookup_packed", "row_gather"}),
+    ("exp_flat2", {"lookup_packed", "frontier_packed", "row_gather"}),
+    ("exp_fused", {"frontier_packed", "row_gather"}),
+    ("exp_dma_tiled", {"row_gather", "frontier_lookup", "frontier_packed",
+                       "exact_frontier"}),
+)
+# name -> (source, the TPU kernel it replaces, the other TPU kernels it replaces)
 KERNEL_SOURCES = {
-    "pq_lookup": ("bang_tpu_torch/csrc/pq_lookup.cu", "bang_tpu/ops/pq_pallas.py:74"),
+    "pq_lookup": ("bang_tpu_torch/csrc/pq_lookup.cu", "bang_tpu/ops/pq_pallas.py:74", []),
     "frontier_lookup": ("bang_tpu_torch/csrc/frontier_lookup.cu",
-                        "bang_tpu/ops/pq_pallas.py:267"),
+                        "bang_tpu/ops/pq_pallas.py:267", ["bang_tpu/ops/pq_pallas.py:411"]),
     "exact_frontier": ("bang_tpu_torch/csrc/exact_frontier.cu",
-                       "bang_tpu/ops/pq_pallas.py:564"),
+                       "bang_tpu/ops/pq_pallas.py:564", []),
+    "lookup_packed": ("bang_tpu_torch/csrc/lookup_packed.cu", "scripts/exp_lookup.py:85",
+                      ["scripts/exp_flat_lookup.py:90", "scripts/exp_flat2.py:106"]),
+    "frontier_packed": ("bang_tpu_torch/csrc/frontier_packed.cu", "scripts/exp_fused.py:79",
+                        ["scripts/exp_flat2.py:148"]),
+    "row_gather": ("bang_tpu_torch/csrc/row_gather.cu", "scripts/exp_dma_tiled.py:71", []),
 }
+# one H100 SXM (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def log(msg):
@@ -126,29 +165,28 @@ def phase_build():
 
 
 def _fused_inputs(gen, q, n, r, m, beam, id_hi, dev):
-    from bang_tpu_torch.ops.adjacency import pack_adj_planes
+    from bang_tpu_torch.scripts import _common as cm
 
-    tables = torch.randn((q, m, 256), generator=gen, device=dev) ** 2
-    ids = torch.randint(0, id_hi, (n, r), generator=gen, device=dev,
-                        dtype=torch.int32)
-    codes = torch.randint(0, 256, (n, m * r), generator=gen, device=dev,
-                          dtype=torch.uint8)
-    rows = torch.cat([pack_adj_planes(ids), codes], dim=1)
-    del codes
+    tables = cm.tables(gen, q, m, dev)
+    rows, ids = cm.fused_rows(gen, n, r, m, id_hi, dev)
     parents = torch.randint(0, n, (q, beam), generator=gen, device=dev,
                             dtype=torch.int32)
     return tables, rows, parents, ids
 
 
-def _dist_err(label, got, want):
-    """Max |got - want|; raises past rtol 1e-5 + atol 1e-5 x row max."""
-    err = (got - want).abs()
-    tol = 1e-5 * want.abs() + 1e-5 * want.abs().amax(dim=1, keepdim=True)
-    bad = int((err > tol).sum())
-    if bad or not torch.isfinite(got).all():
-        raise AssertionError(f"{label}: {bad} distances out of tolerance, "
-                             f"max err {float(err.max())}")
-    return float(err.max())
+def _bound(result, name, nbytes, ops=0):
+    """Record the least time the card could take: the larger of `nbytes`
+    over the HBM rate and `ops` f32 operations over the f32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    result[name]["bound_ms"] = max(t_bytes, t_ops)
+    result[name]["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"bound {name}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G op -> "
+        f"{result[name]['bound_ms']:.4f} ms ({result[name]['bound_by']})")
+
+
+def _unique_rows(parents):
+    """How many distinct rows `parents` reads: the rows a call must move."""
+    return int(torch.unique(parents).numel())
 
 
 def _time_ms(fn, reps=20):
@@ -176,34 +214,14 @@ def _time_pair(result, name, label, kern, plain):
         f"plain {p1:.4f} / {p2:.4f} ms")
 
 
-def _exact_rows(gen, n, r, d, id_hi, dev, block=65_536):
-    """Fused exact rows [n, R*(8+D)] in the layout of
-    ops/l2.pack_exact_frontier_rows, from random ids below `id_hi` and
-    random u8 vectors whose norm planes hold their true squared norms;
-    built in row blocks on `dev`."""
-    from bang_tpu_torch.ops.adjacency import pack_adj_planes
-
-    rows = torch.empty((n, r * (8 + d)), dtype=torch.uint8, device=dev)
-    for s in range(0, n, block):
-        b = min(block, n - s)
-        ids = torch.randint(0, id_hi, (b, r), generator=gen, device=dev,
-                            dtype=torch.int32)
-        vecs = torch.randint(0, 256, (b, r, d), generator=gen, device=dev,
-                             dtype=torch.uint8)
-        norms = (vecs.float() ** 2).sum(-1)
-        rows[s : s + b] = torch.cat([pack_adj_planes(ids),
-                                     pack_adj_planes(norms.view(torch.int32)),
-                                     vecs.reshape(b, r * d)], dim=1)
-    return rows
-
-
 def phase_exact_kernel(gen, dev, result):
     """K3 against exact_frontier_plain at EXACT_SHAPES; times the first."""
     from bang_tpu_torch.ops import exact_kernels as ek
     from bang_tpu_torch.ops.l2 import decode_exact_frontier_rows
+    from bang_tpu_torch.scripts import _common as cm
 
     for i, (label, q, n, r, d, beam, id_hi, integer) in enumerate(EXACT_SHAPES):
-        rows = _exact_rows(gen, n, r, d, id_hi, dev)
+        rows = cm.exact_rows(gen, n, r, d, id_hi, dev)
         parents = torch.randint(0, n, (q, beam), generator=gen, device=dev,
                                 dtype=torch.int32)
         if integer:
@@ -237,15 +255,20 @@ def phase_exact_kernel(gen, dev, result):
             _time_pair(result, "exact_frontier", label,
                        lambda: ek.exact_frontier(queries, rows, parents),
                        lambda: ek.exact_frontier_plain(queries, rows, parents))
+            c = beam * r
+            _bound(result, "exact_frontier",
+                   queries.numel() * 4 + _unique_rows(parents) * rows.shape[1]
+                   + parents.numel() * 4 + q * c * 8, 2 * q * c * d)
         del rows, parents, queries, got_ids, got_d, want_ids, want_d, err
         torch.cuda.empty_cache()
 
 
 def phase_kernels(dev):
     from bang_tpu_torch.ops import pq_kernels as pk
+    from bang_tpu_torch.scripts._common import dist_err
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    result = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
+    result = {name: {"max_abs_err": 0.0, "library_ms": None} for name in KERNEL_SOURCES}
     for i, (label, q, n, r, m, beam, id_hi) in enumerate(KERNEL_SHAPES):
         tables, rows, parents, ids = _fused_inputs(gen, q, n, r, m, beam, id_hi, dev)
         got_ids, got_d = pk.frontier_lookup(tables, rows, parents)
@@ -254,13 +277,13 @@ def phase_kernels(dev):
         if not torch.equal(got_ids, want_ids) or not torch.equal(
                 got_ids, ids[parents.long()].reshape(q, -1)):
             raise AssertionError(f"frontier_lookup {label}: ids differ")
-        e2 = _dist_err(f"frontier_lookup {label}", got_d, want_d)
+        e2 = dist_err(f"frontier_lookup {label}", got_d, want_d)
 
         codes = torch.randint(0, 256, (q, beam * r, m), generator=gen,
                               device=dev, dtype=torch.uint8)
         got = pk.pq_lookup(tables, codes)
         torch.cuda.synchronize()
-        e1 = _dist_err(f"pq_lookup {label}", got, pk.pq_lookup_plain(tables, codes))
+        e1 = dist_err(f"pq_lookup {label}", got, pk.pq_lookup_plain(tables, codes))
         result["pq_lookup"]["max_abs_err"] = max(result["pq_lookup"]["max_abs_err"], e1)
         result["frontier_lookup"]["max_abs_err"] = max(
             result["frontier_lookup"]["max_abs_err"], e2)
@@ -273,20 +296,126 @@ def phase_kernels(dev):
             _time_pair(result, "frontier_lookup", label,
                        lambda: pk.frontier_lookup(tables, rows, parents),
                        lambda: pk.frontier_lookup_plain(tables, rows, parents))
+            c = beam * r
+            _bound(result, "pq_lookup",
+                   tables.numel() * 4 + codes.numel() + q * c * 4, q * c * m)
+            _bound(result, "frontier_lookup",
+                   tables.numel() * 4 + _unique_rows(parents) * rows.shape[1]
+                   + parents.numel() * 4 + q * c * 8, q * c * m)
         del tables, rows, parents, ids, codes, got_ids, got_d, want_ids, want_d, got
         torch.cuda.empty_cache()
     phase_exact_kernel(gen, dev, result)
     return result
 
 
+def _note_err(result, name, err):
+    result[name]["max_abs_err"] = max(result[name]["max_abs_err"], err)
+    return err
+
+
+def phase_probes(dev, result):
+    """K4-K6 against their plain versions at PROBE_SHAPES and
+    GATHER_WIDTHS; times each at the probes' shape."""
+    from bang_tpu_torch.ops import probe_kernels as prk
+    from bang_tpu_torch.ops.pq_kernels import pack_tables
+    from bang_tpu_torch.scripts._common import dist_err, fused_rows, same, tables, u8
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for i, (label, q, n, r, m, beam, id_hi) in enumerate(PROBE_SHAPES):
+        rows, ids = fused_rows(gen, n, r, m, id_hi, dev)
+        packed = pack_tables(tables(gen, q, m, dev))
+        parents = torch.randint(0, n, (q * beam,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        c, w = beam * r, (4 + m) * r
+        gathered = prk.row_gather(rows, parents)
+        torch.cuda.synchronize()
+        same(f"row_gather {label}", gathered, prk.row_gather_plain(rows, parents))
+        gathered = gathered.view(q, beam, w)
+
+        ids5, d5 = prk.frontier_packed(packed, gathered, r, 4)
+        torch.cuda.synchronize()
+        want_ids, want_d = prk.frontier_packed_plain(packed, gathered, r, 4)
+        same(f"frontier_packed ids {label}", ids5, want_ids)
+        same(f"frontier_packed ids {label} vs adjacency", ids5,
+             ids[parents.long()].reshape(q, c))
+        if id_hi > 1 << 24 and int(ids5.max()) < 1 << 24:
+            raise AssertionError(f"frontier_packed {label}: id plane 3 never set")
+        e5 = _note_err(result, "frontier_packed",
+                       dist_err(f"frontier_packed {label}", d5, want_d))
+        codes_cm = gathered[..., 4 * r :].contiguous()  # v7's rows: no id planes
+        ids7, d7 = prk.frontier_packed(packed, codes_cm, r, 0)
+        if ids7 is not None:
+            raise AssertionError("frontier_packed without id planes returned ids")
+        # same entries summed in the same order as with id planes
+        same(f"frontier_packed no-ids {label}", d7, d5)
+        codes = codes_cm.view(q, beam, m, r).transpose(2, 3).reshape(q, c, m)
+        d4 = prk.lookup_packed(packed, codes)
+        torch.cuda.synchronize()
+        e4 = _note_err(result, "lookup_packed",
+                       dist_err(f"lookup_packed {label}", d4,
+                                prk.lookup_packed_plain(packed, codes)))
+        same(f"lookup_packed vs frontier_packed {label}", d4, d5)
+        log(f"probes {label}: ids and gathers exact, max abs err K4 {e4:.3g} "
+            f"K5 {e5:.3g}")
+
+        if i == 0:  # time at the probes' shape
+            _time_pair(result, "lookup_packed", label,
+                       lambda: prk.lookup_packed(packed, codes),
+                       lambda: prk.lookup_packed_plain(packed, codes))
+            _time_pair(result, "frontier_packed", label,
+                       lambda: prk.frontier_packed(packed, gathered, r, 4),
+                       lambda: prk.frontier_packed_plain(packed, gathered, r, 4))
+            _time_pair(result, "row_gather", f"{q * beam} rows of {w} B",
+                       lambda: prk.row_gather(rows, parents),
+                       lambda: prk.row_gather_plain(rows, parents))
+            lib = [_time_ms(lambda: torch.index_select(rows, 0, parents))
+                   for _ in range(2)]
+            result["row_gather"]["library_ms"] = sum(lib) / 2
+            log(f"time torch.index_select beside row_gather: {lib[0]:.4f} / "
+                f"{lib[1]:.4f} ms")
+            _bound(result, "lookup_packed",
+                   packed.numel() * 4 + codes.numel() + q * c * 4, q * c * m)
+            _bound(result, "frontier_packed",
+                   packed.numel() * 4 + gathered.numel() + q * c * 8, q * c * m)
+            _bound(result, "row_gather",
+                   _unique_rows(parents) * w + parents.numel() * (w + 4))
+        del rows, ids, packed, parents, gathered, ids5, d5, want_ids, want_d
+        del codes_cm, d7, codes, d4
+        torch.cuda.empty_cache()
+
+    n = 100_000
+    for s in GATHER_WIDTHS:
+        rows = u8(gen, (n, s), dev)
+        parents = torch.randint(0, n // 2, (4096,), generator=gen, device=dev,
+                                dtype=torch.int32) * 2 + 1  # odd rows
+        parents[-2:] = torch.tensor([-1, n], dtype=torch.int32, device=dev)
+        got = prk.row_gather(rows, parents)
+        torch.cuda.synchronize()
+        same(f"row_gather S={s}", got[:-2], prk.row_gather_plain(rows, parents[:-2]))
+        if got[-2:].any():
+            raise AssertionError(f"row_gather S={s}: out-of-range parents not zero")
+        log(f"probes row_gather S={s}: odd parents exact, out-of-range rows zero")
+        del rows, parents, got
+    torch.cuda.empty_cache()
+
+
+def probe_scripts(totals):
+    """Run each probe script at its own sizes, its launches counted."""
+    for name, launched in PROBE_SCRIPTS:
+        mod = importlib.import_module(f"bang_tpu_torch.scripts.{name}")
+        t0 = time.perf_counter()
+        counted(f"probe {name}", launched, lambda: mod.main("cuda"), totals)
+        log(f"probe {name} took {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+
+
 def build_bundle(prefix, dev, n=N, d=D, q=Q, r=R, m=M):
     """The bench's headline bundle (bench.py build_bundle, graph='vamana'),
     built with the port's builders on `dev`; returns stage seconds."""
-    from bang_tpu.formats import synthetic
-    from bang_tpu.formats.bin_io import save_bin, save_truthset
-    from bang_tpu.formats.graph import GraphIndex, save_graph_index
-    from bang_tpu.formats.pq import save_pq
-    from bang_tpu_torch.formats import accel, vamana
+    from bang_tpu_torch.formats import accel, synthetic, vamana
+    from bang_tpu_torch.formats.bin_io import save_bin, save_truthset
+    from bang_tpu_torch.formats.graph import GraphIndex, save_graph_index
+    from bang_tpu_torch.formats.pq import save_pq
 
     t = {}
     t0 = time.perf_counter()
@@ -347,10 +476,10 @@ def run_search(prefix, dev, variant, l_values, fused_frontier=None,
                entry_mode="medoid"):
     """BANGSearch(variant) over `l_values` at bench.py's beam and
     extra_iters; one row per L (with the returned ids)."""
-    from bang_tpu.formats.bin_io import load_bin, load_truthset
-    from bang_tpu.formats.graph import load_graph_index
-    from bang_tpu.utils.recall import calculate_recall
     from bang_tpu_torch.api import BANGSearch
+    from bang_tpu_torch.formats.bin_io import load_bin, load_truthset
+    from bang_tpu_torch.formats.graph import load_graph_index
+    from bang_tpu_torch.utils.recall import calculate_recall
 
     queries = load_bin(prefix + "_query.bin", np.uint8)
     gt_ids, gt_dists = load_truthset(prefix + "_gt.bin")
@@ -413,9 +542,8 @@ def _best(rows, what):
     return best
 
 
-def search_phases(dev):
-    """Phases 4-9 on `dev`; returns the launch counts summed over 5-9."""
-    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+def search_phases(dev, totals):
+    """Phases 4-9 on `dev`; adds the launch counts of 5-9 to `totals`."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         prefix = os.path.join(tmp, "synth1m")
         build_bundle(prefix, dev)
@@ -464,7 +592,6 @@ def search_phases(dev):
     log(f"ok: inmemory best L={best['L']} recall@10 {best['recall']:.2f}, "
         f"scattered {scattered['recall']:.2f}; exactdistance best L={best_e['L']} "
         f"recall@10 {best_e['recall']:.2f}, scattered ids identical")
-    return totals
 
 
 def main():
@@ -474,14 +601,20 @@ def main():
 
     phase_build()
     kern = phase_kernels(dev)
-    totals = search_phases(dev)
+    t0 = time.perf_counter()
+    phase_probes(dev, kern)
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+    probe_scripts(totals)
+    log(f"probes {time.perf_counter() - t0:.1f}s")
+    search_phases(dev, totals)
     log(f"on {smi}")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": totals[name], "max_abs_err": kern[name]["max_abs_err"],
-         "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]}
-        for name, (src, rep) in KERNEL_SOURCES.items()
+         "also_replaces": also, "launches": totals[name],
+         **{k: kern[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}}
+        for name, (src, rep, also) in KERNEL_SOURCES.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
