@@ -39,7 +39,8 @@ def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
     queries_f32 = torch.as_tensor(queries, device=dev).float()
     q = queries_f32.shape[0]
     distance_fn = make_pq_distance_fn(
-        queries_f32, index.codebook, index.codes, fused_rows=index.fused_rows
+        queries_f32, index.codebook, index.codes, fused_rows=index.fused_rows,
+        impl=params.pq_impl,
     )
     entry_ids, entry_dists = entry_points(index, queries_f32, params)
     final = run_traversal(

@@ -4,11 +4,13 @@ Port of bang_tpu/ops/pq_pallas.py. Kernels (CUDA C++ for sm_90a under
 `csrc/`, built by `ops/_build.py`):
 
   K1 `pq_lookup`        replaces `pq_lookup_packed` — PQ lookup over codes
-                        gathered per candidate (scattered-codes layout).
+                        gathered per candidate (scattered-codes layout),
+                        over f32 tables.
   K2 `frontier_lookup`  replaces `frontier_lookup` and `frontier_lookup_dma`
                         — candidate ids and PQ distances read straight from
                         the ungathered fused rows of each query's parents
-                        (fused-row layout, the default).
+                        (fused-row layout, the default), over the JAX
+                        kernels' bf16-pair tables.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it returns its plain
@@ -18,27 +20,36 @@ counts kernel launches, so a run can show that its main path went through
 the kernels; `reset_launch_counts` zeroes all of them: K3 `exact_frontier`
 (ops/exact_kernels.py) and K4-K6 (ops/probe_kernels.py) included.
 
-K1 and K2 stream f32 tables. The JAX kernels' bf16-pair form
-(`pack_tables`, `unpack_tables`; ops/pq.py, bit-identical to JAX's) is the
-table form of K4 and K5, the counterparts of the `scripts/` probes, which
-measure on the card what halving the table bytes buys.
+Table forms: K2 reads the bf16-pair tables the JAX package's fused route
+reads on its accelerator (`pack_tables`; ops/pq.py, bit-identical to
+JAX's), so its sums are the bf16 entries' and equal K6 + K5's bit for bit.
+K1 still streams f32 tables; its packed form, K4, is measured but not on a
+search path. `frontier_decode_plain` is the fused route's f32 decode, JAX's
+`frontier_decode_xla`: the route the CPU takes under `impl="auto"`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bang_tpu_torch.constants import MAX_R
+from bang_tpu_torch.constants import INVALID_ID, MAX_R
 from bang_tpu_torch.ops._build import check_tensor, route
 from bang_tpu_torch.ops.adjacency import decode_adj_planes, pack_adj_planes
 from bang_tpu_torch.ops.exact_kernels import exact_frontier
 from bang_tpu_torch.ops.pq import pack_tables, unpack_tables  # noqa: F401
 from bang_tpu_torch.ops.pq import pq_lookup as pq_lookup_plain
-from bang_tpu_torch.ops.probe_kernels import frontier_packed, lookup_packed, row_gather
+from bang_tpu_torch.ops.probe_kernels import (
+    MAX_SHARED_BYTES,
+    _check_aligned,
+    _check_packed,
+    frontier_packed,
+    frontier_packed_plain,
+    lookup_packed,
+    row_gather,
+)
 
-# A block stages one query's m x 256 f32 table in shared memory; an H100
-# block can use at most 227 KB (232,448 bytes) of it.
-MAX_SHARED_BYTES = 232_448
+# K1 stages one query's m x 256 f32 table in shared memory; an H100 block
+# can use at most 227 KB (MAX_SHARED_BYTES = 232,448 bytes) of it.
 MAX_CHUNKS = MAX_SHARED_BYTES // (256 * 4)  # 227
 MAX_BEAM = 16  # SearchParams.beam_width's bound
 
@@ -61,12 +72,33 @@ def pack_frontier_rows(adj: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return torch.cat([planes, cm], dim=1)
 
 
-def frontier_lookup_plain(tables, fused_rows, parents):
-    """Plain version of K2: row gather + byte-plane decode + pq_lookup_plain
-    (the counterpart of the JAX `frontier_decode_xla`).
+def frontier_lookup_plain(packed, fused_rows, parents):
+    """Plain version of K2: the row gather, then the decode and bf16-pair
+    lookup of K5's plain version (probe_kernels.frontier_packed_plain). A
+    parent outside [0, N) gives id -1 and +inf on its R lanes, as the
+    kernel does.
+
+    packed [Q, m, 128] int32; fused_rows [N, R*(4+m)] u8; parents [Q, beam]
+    int32. Returns (ids [Q, beam*R] i32, dists [Q, beam*R] f32)."""
+    m = packed.shape[1]
+    n = fused_rows.shape[0]
+    r = fused_rows.shape[1] // (4 + m)
+    p = parents.long()
+    rows = fused_rows[p.clamp(0, n - 1)]  # [Q, beam, 4R + m*R]
+    ids, dists = frontier_packed_plain(packed, rows, r, 4)
+    bad = ((p < 0) | (p >= n)).repeat_interleave(r, dim=1)
+    return (ids.masked_fill(bad, INVALID_ID),
+            dists.masked_fill(bad, float("inf")))
+
+
+def frontier_decode_plain(tables, fused_rows, parents):
+    """The fused-row decode over f32 tables (the counterpart of the JAX
+    `frontier_decode_xla`): row gather + byte-plane decode +
+    pq_lookup_plain. The fused route's `impl="xla"`; no kernel sits behind
+    it.
 
     tables [Q, m, 256] f32; fused_rows [N, R*(4+m)] u8; parents [Q, beam]
-    int32. Returns (ids [Q, beam*R] i32, dists [Q, beam*R] f32)."""
+    int32 in [0, N). Returns (ids [Q, beam*R] i32, dists [Q, beam*R] f32)."""
     q, m, _ = tables.shape
     beam = parents.shape[1]
     r = fused_rows.shape[1] // (4 + m)
@@ -123,16 +155,19 @@ def pq_lookup(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 pq_lookup.launches = 0
 
 
-def frontier_lookup(tables: torch.Tensor, fused_rows: torch.Tensor,
+def frontier_lookup(packed: torch.Tensor, fused_rows: torch.Tensor,
                     parents: torch.Tensor):
     """K2: (ids, dists) of every neighbor of each query's parents, read from
-    the ungathered fused rows.
+    the ungathered fused rows, over bf16-pair tables.
 
-    tables: [Q, m, 256] f32; fused_rows: [N, R*(4+m)] u8
-    (pack_frontier_rows); parents: [Q, beam] int32 in [0, N); all
-    contiguous, on one device. Returns (ids [Q, beam*R] i32, dists
-    [Q, beam*R] f32)."""
-    q, m = _check_tables(tables)
+    packed: [Q, m, 128] int32 (pack_tables), on a 16-byte boundary;
+    fused_rows: [N, R*(4+m)] u8 (pack_frontier_rows); parents: [Q, beam]
+    int32; all contiguous, on one device. dists[q, b*R + j] is the f32 sum
+    of the m bf16 entries of neighbor j of parent b, added in chunk order;
+    a parent outside [0, N) gives id -1 and +inf. Returns (ids [Q, beam*R]
+    i32, dists [Q, beam*R] f32)."""
+    q, m = _check_packed(packed)
+    _check_aligned(packed)
     check_tensor("fused_rows", fused_rows, torch.uint8, 2)
     check_tensor("parents", parents, torch.int32, 2)
     n, row_w = fused_rows.shape
@@ -142,23 +177,28 @@ def frontier_lookup(tables: torch.Tensor, fused_rows: torch.Tensor,
             f"fused_rows width {row_w} is not R*(4+m) with m={m}, "
             f"1 <= R <= {MAX_R}"
         )
+    if m * 512 + -(-row_w // 16) * 16 > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"m={m}, R={r}: the kernel stages the m x 128 int32 table and one "
+            f"{row_w}-byte row in shared memory, {MAX_SHARED_BYTES} bytes at most"
+        )
     beam = parents.shape[1]
     if parents.shape[0] != q or not 1 <= beam <= MAX_BEAM:
         raise ValueError(
             f"parents {tuple(parents.shape)} must be [Q={q}, beam<={MAX_BEAM}]"
         )
-    if route(tables, fused_rows, parents) == "cpu":
-        return frontier_lookup_plain(tables, fused_rows, parents)
+    if route(packed, fused_rows, parents) == "cpu":
+        return frontier_lookup_plain(packed, fused_rows, parents)
     from bang_tpu_torch.ops import _build
 
-    ids = torch.empty((q, beam * r), dtype=torch.int32, device=tables.device)
-    dists = torch.empty((q, beam * r), dtype=torch.float32, device=tables.device)
+    ids = torch.empty((q, beam * r), dtype=torch.int32, device=packed.device)
+    dists = torch.empty((q, beam * r), dtype=torch.float32, device=packed.device)
     if q == 0:
         return ids, dists
     lib = _build.load_library("frontier_lookup")
-    with torch.cuda.device(tables.device):
+    with torch.cuda.device(packed.device):
         err = lib.frontier_lookup_launch(
-            tables.data_ptr(), fused_rows.data_ptr(), parents.data_ptr(),
+            packed.data_ptr(), fused_rows.data_ptr(), parents.data_ptr(),
             ids.data_ptr(), dists.data_ptr(), n, q, r, m, beam,
             torch.cuda.current_stream().cuda_stream,
         )

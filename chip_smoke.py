@@ -10,13 +10,18 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 per source, all started together.
   3. kernels  — K1 pq_lookup, K2 frontier_lookup and K3 exact_frontier
                 against their plain PyTorch versions on the card at the main
-                paths' shapes and others: ids bit-exact; K1/K2 distances
-                within rtol 1e-5 plus atol 1e-5 x the row's largest distance
-                (f32 summation order is all that differs); K3 distances
-                bit-exact for integer queries at D <= 128 (every partial sum
-                is an integer below 2^24), else within rtol 1e-5 plus atol
-                1e-5 x (||q||^2 + the row's largest norm). Times each at its
-                main path's shape.
+                paths' shapes and others: ids bit-exact; K1 (f32 tables) and
+                K2 (bf16-pair tables, pack_tables) distances within rtol
+                1e-5 plus atol 1e-5 x the row's largest distance (f32
+                summation order is all that differs); K2 also with parents
+                outside [0, N) (id -1, +inf), and at the main shape
+                identical bit for bit to K6 row_gather + K5 frontier_packed
+                on the same parents (the same sum in the same order); K3
+                distances bit-exact for integer queries at D <= 128 (every
+                partial sum is an integer below 2^24), else within rtol
+                1e-5 plus atol 1e-5 x (||q||^2 + the row's largest norm).
+                Times each at its main path's shape; K2's bound counts the
+                packed tables' bytes.
   probes      — K4 lookup_packed, K5 frontier_packed (with and without id
                 planes) and K6 row_gather, the counterparts of the six
                 Pallas probes in scripts/, against their plain versions at
@@ -37,6 +42,9 @@ Phases, each printing progress; any failure raises and exits non-zero:
   5. search   — BANGSearch("inmemory") on the fused-row layout (K2), L in
                 {32, 64, 128, 256, 512}, beam 2, extra_iters 11: recall@10,
                 iterations, wall time and QPS; recall@10 >= 90 at the best L.
+                Then one call at L=128 under torch.profiler, after three
+                timed ones: kernel device ms by name, busy share, peak
+                memory.
   6. scattered — the same bundle on the scattered-codes layout (K1) at the
                 best L: recall within 0.5 points of phase 5.
   7. exact    — BANGSearch("exactdistance") on the fused exact rows (K3),
@@ -70,6 +78,7 @@ R, M = 64, 64
 # bench.py's operating points (VARIANT_CONFIGS) and Vamana settings
 BEAM_EXTRA = {"inmemory": (2, 11), "exactdistance": (1, 6)}
 L_SWEEP = (32, 64, 128, 256, 512)
+PROFILE_L = 128  # the in-memory L whose fused search is profiled (PERF.md §5)
 EXACT_L_SWEEP = (10, 16, 30, 60, 100)
 VAMANA = {"l_build": 48, "batch": 4096, "alpha": 1.44, "n_passes": 2, "seed": 0}
 RECALL_TARGET = 90.0
@@ -82,6 +91,13 @@ KERNEL_SHAPES = (
     ("R=32 m=32", Q, 200_000, 32, 32, 2, 200_000),
     ("R=24 m=12 beam=4", 4096, 100_000, 24, 12, 4, 100_000),
     ("ids up to 2^30", 4096, 50_000, 64, 64, 2, 1 << 30),
+    # K2's other copy paths: 4-byte and byte copies of rows whose width is
+    # not a multiple of 16 (or 4), parents in groups of 3 + 2, and a table
+    # so large that each parent is a group of its own
+    ("R=20 m=13 beam=3 (4-byte row copies)", 4096, 50_000, 20, 13, 3, 50_000),
+    ("R=15 m=9 beam=2 (byte row copies)", 4096, 50_000, 15, 9, 2, 50_000),
+    ("R=64 m=64 beam=5 (parents in groups)", 4096, 100_000, 64, 64, 5, 100_000),
+    ("R=64 m=200 beam=2 (a parent a group)", 2048, 20_000, 64, 200, 2, 20_000),
 )
 # K3: (label, Q, N rows, R, D, beam, ids drawn below, integer queries)
 EXACT_SHAPES = (
@@ -263,6 +279,42 @@ def phase_exact_kernel(gen, dev, result):
         torch.cuda.empty_cache()
 
 
+def _k2_against_k6_k5(packed, rows, parents, ids, dists):
+    """K2 at the main shape against K6 row_gather + K5 frontier_packed on the
+    same parents and packed tables: identical bit for bit."""
+    from bang_tpu_torch.ops import probe_kernels as prk
+    from bang_tpu_torch.scripts._common import same
+
+    q, beam = parents.shape
+    r = ids.shape[1] // beam
+    gathered = prk.row_gather(rows, parents.view(-1)).view(q, beam, rows.shape[1])
+    ids5, d5 = prk.frontier_packed(packed, gathered, r, 4)
+    torch.cuda.synchronize()
+    same("frontier_lookup vs row_gather + frontier_packed ids", ids, ids5)
+    same("frontier_lookup vs row_gather + frontier_packed dists", dists, d5)
+    log("kernels K2 identical bit for bit to K6 + K5 on the same parents")
+
+
+def _k2_out_of_range(gen, dev):
+    """K2 with parents outside [0, N): id -1 and +inf on their lanes, the
+    rest as the plain version."""
+    from bang_tpu_torch.ops import pq_kernels as pk
+    from bang_tpu_torch.scripts._common import dist_err, same
+
+    tables, rows, parents, _ = _fused_inputs(gen, 256, 5_000, R, M, 2, 5_000, dev)
+    parents[::3, 0] = -1
+    parents[1::3, 1] = rows.shape[0]
+    packed = pk.pack_tables(tables)
+    ids, d = pk.frontier_lookup(packed, rows, parents)
+    torch.cuda.synchronize()
+    want_ids, want_d = pk.frontier_lookup_plain(packed, rows, parents)
+    same("frontier_lookup out-of-range ids", ids, want_ids)
+    bad = want_ids < 0
+    same("frontier_lookup out-of-range lanes", torch.isinf(d), bad)
+    dist_err("frontier_lookup out-of-range dists", d[~bad], want_d[~bad])
+    log("kernels K2 parents outside [0, N): id -1 and +inf, the rest as plain")
+
+
 def phase_kernels(dev):
     from bang_tpu_torch.ops import pq_kernels as pk
     from bang_tpu_torch.scripts._common import dist_err
@@ -271,9 +323,10 @@ def phase_kernels(dev):
     result = {name: {"max_abs_err": 0.0, "library_ms": None} for name in KERNEL_SOURCES}
     for i, (label, q, n, r, m, beam, id_hi) in enumerate(KERNEL_SHAPES):
         tables, rows, parents, ids = _fused_inputs(gen, q, n, r, m, beam, id_hi, dev)
-        got_ids, got_d = pk.frontier_lookup(tables, rows, parents)
+        packed = pk.pack_tables(tables)
+        got_ids, got_d = pk.frontier_lookup(packed, rows, parents)
         torch.cuda.synchronize()
-        want_ids, want_d = pk.frontier_lookup_plain(tables, rows, parents)
+        want_ids, want_d = pk.frontier_lookup_plain(packed, rows, parents)
         if not torch.equal(got_ids, want_ids) or not torch.equal(
                 got_ids, ids[parents.long()].reshape(q, -1)):
             raise AssertionError(f"frontier_lookup {label}: ids differ")
@@ -290,20 +343,22 @@ def phase_kernels(dev):
         log(f"kernels {label}: ids exact, max abs err K1 {e1:.3g} K2 {e2:.3g}")
 
         if i == 0:  # time at the main path's shape
+            _k2_against_k6_k5(packed, rows, parents, got_ids, got_d)
             _time_pair(result, "pq_lookup", label,
                        lambda: pk.pq_lookup(tables, codes),
                        lambda: pk.pq_lookup_plain(tables, codes))
             _time_pair(result, "frontier_lookup", label,
-                       lambda: pk.frontier_lookup(tables, rows, parents),
-                       lambda: pk.frontier_lookup_plain(tables, rows, parents))
+                       lambda: pk.frontier_lookup(packed, rows, parents),
+                       lambda: pk.frontier_lookup_plain(packed, rows, parents))
             c = beam * r
             _bound(result, "pq_lookup",
                    tables.numel() * 4 + codes.numel() + q * c * 4, q * c * m)
             _bound(result, "frontier_lookup",
-                   tables.numel() * 4 + _unique_rows(parents) * rows.shape[1]
+                   packed.numel() * 4 + _unique_rows(parents) * rows.shape[1]
                    + parents.numel() * 4 + q * c * 8, q * c * m)
-        del tables, rows, parents, ids, codes, got_ids, got_d, want_ids, want_d, got
+        del tables, packed, rows, parents, ids, codes, got_ids, got_d, want_ids, want_d, got
         torch.cuda.empty_cache()
+    _k2_out_of_range(gen, dev)
     phase_exact_kernel(gen, dev, result)
     return result
 
@@ -517,6 +572,51 @@ def run_search(prefix, dev, variant, l_values, fused_frontier=None,
     return rows
 
 
+def profile_search(prefix, dev, variant, L):
+    """BANGSearch(variant) at L on the fused layout: three timed calls, then
+    one under torch.profiler. Prints the device ms of each kernel name
+    (summed over the call), their total against the profiled call's wall
+    (the device's busy share) and the peak memory of that call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bang_tpu_torch.api import BANGSearch
+    from bang_tpu_torch.formats.bin_io import load_bin
+
+    queries = load_bin(prefix + "_query.bin", np.uint8)
+    beam, extra = BEAM_EXTRA[variant]
+    s = BANGSearch(variant, device=dev)
+    s.bang_load(prefix)
+    s.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra)
+    s.bang_alloc(len(queries))
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.bang_query(queries)
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.bang_query(queries)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    iters = s.last_stats.iters
+    s.bang_unload()
+    kernels = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+        reverse=True)
+    total = sum(k[0] for k in kernels)
+    log(f"profile {variant} L={L}: {iters} iterations; walls of 3 timed calls "
+        + " / ".join(f"{w:.4f}" for w in walls) + f" s; profiled call {wall:.4f} s")
+    for ms, count, key in kernels[:16]:
+        log(f"profile {ms:10.3f} ms {count:6d} calls  {key[:100]}")
+    log(f"profile {variant} L={L}: kernels {total:.3f} ms in a {wall * 1e3:.3f} ms "
+        f"wall, busy {total / (wall * 1e3):.1%}; peak {peak / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+
+
 def counted(label, launched, fn, totals):
     """Run one search phase with every launch count zeroed just before and
     read just after; fail unless exactly the kernels named in `launched`
@@ -543,7 +643,8 @@ def _best(rows, what):
 
 
 def search_phases(dev, totals):
-    """Phases 4-9 on `dev`; adds the launch counts of 5-9 to `totals`."""
+    """Phases 4-9 on `dev`; adds the launch counts of 5-9 to `totals` (not
+    those of the profiled call after phase 5)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         prefix = os.path.join(tmp, "synth1m")
         build_bundle(prefix, dev)
@@ -551,6 +652,7 @@ def search_phases(dev, totals):
         fused = counted("search inmemory fused", {"frontier_lookup"},
                         lambda: run_search(prefix, dev, "inmemory", L_SWEEP), totals)
         best = _best(fused, "inmemory fused")
+        profile_search(prefix, dev, "inmemory", PROFILE_L)
         scattered = counted("search inmemory scattered", {"pq_lookup"},
                             lambda: run_search(prefix, dev, "inmemory", (best["L"],),
                                                fused_frontier=False), totals)[0]

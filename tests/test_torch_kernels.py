@@ -3,14 +3,21 @@
 Here the wrappers take their plain versions (the tensors lie on the CPU);
 the CUDA kernels themselves are compared with the same plain versions on
 the card by chip_smoke.py. Held against the JAX package:
-  * K1 `pq_lookup` and K2 `frontier_lookup` (plain) against JAX `pq_lookup`
-    and `frontier_decode_xla`: f32 tables both sides, rtol 1e-5 plus atol
-    1e-5 x the row's magnitude (summation order only);
-  * against the Pallas kernels `pq_lookup_packed` and `frontier_lookup` in
-    interpret mode: rtol 2e-2, atol 2e-2 x m — the Pallas kernels read
-    bf16 tables (~0.4% per entry);
-  * ids bit-exact, on hand-packed rows whose ids reach 2^30 (byte planes 2
-    and 3 non-zero) and at R=24, which the JAX kernels do not take.
+  * K1 `pq_lookup` (plain) and the fused route's f32 decode
+    `frontier_decode_plain` against JAX `pq_lookup` and
+    `frontier_decode_xla`: f32 tables both sides, rtol 1e-5 plus atol 1e-5
+    x the row's magnitude (summation order only);
+  * K1 against the Pallas `pq_lookup_packed` in interpret mode: rtol 2e-2,
+    atol 2e-2 x m — the Pallas kernel reads bf16 tables (~0.4% per entry),
+    K1 f32 ones;
+  * K2 `frontier_lookup` (plain) against the Pallas `frontier_lookup` and
+    `frontier_lookup_dma` in interpret mode, both over the same bf16-pair
+    tables (the port's `pack_tables` words equal JAX's): ids bit-exact,
+    distances within rtol 1e-5 plus atol 1e-5 x the row's largest — the
+    same bf16 entries, only the order of the f32 sum differs;
+  * K2 equal bit for bit to K5's plain version on the gathered rows, ids
+    up to 2^30 (byte planes 2 and 3 non-zero) and at R=24, which the JAX
+    kernels do not take.
 """
 
 import jax.numpy as jnp
@@ -22,6 +29,7 @@ from bang_tpu.ops import pq as jpq
 from bang_tpu.ops import pq_pallas as jpp
 from bang_tpu_torch.ops import _build
 from bang_tpu_torch.ops import pq_kernels as k
+from bang_tpu_torch.ops.probe_kernels import frontier_packed_plain
 
 
 def _close(got, want, rtol, atol_scale):
@@ -52,6 +60,12 @@ def _fused_case(rng, q, n, r, m, beam, id_hi):
     return _tables(rng, q, m), rows, parents, ids
 
 
+def _k2(tables, rows, parents):
+    """K2 through its wrapper on the port's packing of `tables`."""
+    packed = k.pack_tables(torch.from_numpy(tables))
+    return k.frontier_lookup(packed, torch.from_numpy(rows), torch.from_numpy(parents))
+
+
 def test_k1_plain_matches_jax_lookup():
     rng = np.random.default_rng(0)
     tables = _tables(rng, 12, 16)
@@ -68,7 +82,8 @@ def test_k2_plain_matches_jax_decode(r, m, beam):
     want_ids, want_d = jpp.frontier_decode_xla(
         jnp.asarray(tables), jnp.asarray(rows)[parents], m, r, beam
     )
-    got_ids, got_d = k.frontier_lookup(*map(torch.from_numpy, (tables, rows, parents)))
+    got_ids, got_d = k.frontier_decode_plain(
+        *map(torch.from_numpy, (tables, rows, parents)))
     np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
     want_d = np.asarray(want_d)
     _close(got_d, want_d, 1e-5, 1e-5 * np.abs(want_d).max(-1, keepdims=True))
@@ -88,32 +103,78 @@ def test_k1_plain_matches_pallas_interpret(r, m):
 
 @pytest.mark.parametrize("r,m,beam", [(64, 16, 2), (32, 8, 4)])
 def test_k2_plain_matches_pallas_interpret(r, m, beam):
-    """Ids bit-exact against the Pallas frontier kernel, planes 2 and 3 in
-    play (ids up to 2^30)."""
+    """Against the Pallas frontier kernel on the same packed words: ids
+    bit-exact with planes 2 and 3 in play (ids up to 2^30), distances to
+    f32 summation order."""
     rng = np.random.default_rng(20 + r)
     tables, rows, parents, _ = _fused_case(rng, 16, 200, r, m, beam, 1 << 30)
+    packed_j = jpp.pack_tables(jnp.asarray(tables))
+    packed = k.pack_tables(torch.from_numpy(tables))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(packed_j))
     want_ids, want_d = jpp.frontier_lookup(
-        jpp.pack_tables(jnp.asarray(tables)), jnp.asarray(rows)[parents],
+        packed_j, jnp.asarray(rows)[parents],
         m=m, r=r, beam=beam, tile_q=8, interpret=True,
     )
-    got_ids, got_d = k.frontier_lookup(*map(torch.from_numpy, (tables, rows, parents)))
+    got_ids, got_d = k.frontier_lookup(packed, *map(torch.from_numpy, (rows, parents)))
     np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
-    _close(got_d, want_d, 2e-2, 2e-2 * m)
+    want_d = np.asarray(want_d)
+    _close(got_d, want_d, 1e-5, 1e-5 * np.abs(want_d).max(-1, keepdims=True))
+
+
+def test_k2_plain_matches_pallas_dma_interpret():
+    """Against the in-kernel-DMA Pallas frontier on its tiled rows, N >
+    65,536 (byte plane 2 set), tile_q=8: the flat prefix of each tiled row
+    is the port's fused row."""
+    rng = np.random.default_rng(40)
+    n, r, m, beam, q = 70_000, 64, 8, 2, 16
+    adj = rng.integers(0, n, size=(n, r), dtype=np.int32)
+    codes = rng.integers(0, 256, size=(n, m), dtype=np.uint8)
+    tiled = jpp.pack_frontier_rows_tiled(adj, codes)
+    rows = k.pack_frontier_rows(torch.from_numpy(adj), torch.from_numpy(codes))
+    np.testing.assert_array_equal(
+        rows.numpy(), tiled.reshape(n, -1)[:, : r * (4 + m)])
+    tables = _tables(rng, q, m)
+    parents = rng.integers(0, n, size=(q, beam), dtype=np.int32)
+    want_ids, want_d = jpp.frontier_lookup_dma(
+        jpp.pack_tables(jnp.asarray(tables)), jnp.asarray(tiled),
+        jnp.asarray(parents), m=m, r=r, beam=beam, tile_q=8, interpret=True,
+    )
+    got_ids, got_d = k.frontier_lookup(
+        k.pack_tables(torch.from_numpy(tables)), rows, torch.from_numpy(parents))
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
+    assert (got_ids.numpy() >= 1 << 16).any()
+    want_d = np.asarray(want_d)
+    _close(got_d, want_d, 1e-5, 1e-5 * np.abs(want_d).max(-1, keepdims=True))
 
 
 @pytest.mark.parametrize("r,m,beam", [(32, 32, 2), (24, 12, 4), (64, 64, 2)])
 def test_k2_ids_bit_exact_hand_packed(r, m, beam):
-    """Every id of every parent comes back, up to 2^30, at any R."""
+    """Every id of every parent comes back, up to 2^30, at any R; the
+    distances are K5's plain version's on the gathered rows, bit for bit."""
     rng = np.random.default_rng(30 + r)
     tables, rows, parents, ids = _fused_case(rng, 9, 150, r, m, beam, 1 << 30)
     assert (ids >= 1 << 24).any()  # plane 3 is non-zero somewhere
-    got_ids, got_d = k.frontier_lookup(*map(torch.from_numpy, (tables, rows, parents)))
+    got_ids, got_d = _k2(tables, rows, parents)
     np.testing.assert_array_equal(got_ids.numpy(), ids[parents].reshape(9, beam * r))
-    cm = rows[parents][..., 4 * r :].reshape(9, beam, m, r).transpose(0, 1, 3, 2)
-    want = k.pq_lookup_plain(
-        torch.from_numpy(tables), torch.from_numpy(np.ascontiguousarray(cm).reshape(9, beam * r, m))
-    )
-    np.testing.assert_array_equal(got_d.numpy(), want.numpy())
+    want_ids, want_d = frontier_packed_plain(
+        k.pack_tables(torch.from_numpy(tables)), torch.from_numpy(rows[parents]), r, 4)
+    assert torch.equal(got_ids, want_ids) and torch.equal(got_d, want_d)
+
+
+def test_k2_out_of_range_parents_give_invalid_lanes():
+    """A parent outside [0, N) gives id -1 and +inf on its R lanes, the
+    other parent's lanes as usual."""
+    rng = np.random.default_rng(2)
+    tables, rows, parents, ids = _fused_case(rng, 3, 40, 8, 4, 2, 40)
+    parents[0, 1], parents[1, 0] = -1, 40
+    got_ids, got_d = _k2(tables, rows, parents)
+    bad = np.zeros((3, 2), bool)
+    bad[0, 1] = bad[1, 0] = True
+    lanes = np.repeat(bad, 8, axis=1)
+    assert (got_ids.numpy()[lanes] == -1).all() and np.isinf(got_d.numpy()[lanes]).all()
+    want = ids[np.clip(parents, 0, 39)].reshape(3, 16)
+    np.testing.assert_array_equal(got_ids.numpy()[~lanes], want[~lanes])
+    assert np.isfinite(got_d.numpy()[~lanes]).all()
 
 
 def test_cpu_wrappers_run_plain_and_count_nothing():
@@ -121,8 +182,9 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     k.reset_launch_counts()
     tables, rows, parents, _ = _fused_case(rng, 4, 50, 8, 4, 2, 50)
     tt, rt, pt = map(torch.from_numpy, (tables, rows, parents))
-    ids, d = k.frontier_lookup(tt, rt, pt)
-    p_ids, p_d = k.frontier_lookup_plain(tt, rt, pt)
+    packed = k.pack_tables(tt)
+    ids, d = k.frontier_lookup(packed, rt, pt)
+    p_ids, p_d = k.frontier_lookup_plain(packed, rt, pt)
     assert torch.equal(ids, p_ids) and torch.equal(d, p_d)
     codes = torch.from_numpy(rng.integers(0, 256, size=(4, 16, 4), dtype=np.uint8))
     assert torch.equal(k.pq_lookup(tt, codes), k.pq_lookup_plain(tt, codes))
@@ -140,14 +202,34 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         k.pq_lookup(tables, codes[:, :, :4].contiguous())
     with pytest.raises(ValueError, match="m=300"):
         k.pq_lookup(torch.zeros((1, 300, 256)), torch.zeros((1, 2, 300), dtype=torch.uint8))
+    packed = torch.zeros((4, 8, 128), dtype=torch.int32)
     rows = torch.zeros((10, 8 * 12), dtype=torch.uint8)
     parents = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
-        k.frontier_lookup(tables, rows, parents.long())
+        k.frontier_lookup(packed, rows, parents.long())
     with pytest.raises(ValueError, match="not R"):
-        k.frontier_lookup(tables, rows[:, :-1].contiguous(), parents)
+        k.frontier_lookup(packed, rows[:, :-1].contiguous(), parents)
     with pytest.raises(ValueError, match="beam"):
-        k.frontier_lookup(tables, rows, torch.zeros((4, 17), dtype=torch.int32))
+        k.frontier_lookup(packed, rows, torch.zeros((4, 17), dtype=torch.int32))
+    with pytest.raises(ValueError, match="128"):
+        k.frontier_lookup(torch.zeros((4, 8, 256), dtype=torch.int32), rows, parents)
+    with pytest.raises(ValueError, match="16-byte"):
+        k.frontier_lookup(torch.zeros(4 * 8 * 128 + 1, dtype=torch.int32)[1:].view(4, 8, 128),
+                          rows, parents)
+    # m=440: the 220 KB table fits, the table and one 28 KB row do not
+    with pytest.raises(ValueError, match="shared memory"):
+        k.frontier_lookup(torch.zeros((1, 440, 128), dtype=torch.int32),
+                          torch.zeros((2, 64 * 444), dtype=torch.uint8),
+                          torch.zeros((1, 1), dtype=torch.int32))
+
+
+def test_k2_refuses_f32_tables():
+    """The f32 [Q, m, 256] tables of K1 and of the f32 decode, passed to K2
+    by mistake, raise instead of being read as words."""
+    tables = torch.zeros((4, 8, 256))
+    rows = torch.zeros((10, 8 * 12), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="int32"):
+        k.frontier_lookup(tables, rows, torch.zeros((4, 2), dtype=torch.int32))
 
 
 def test_build_command_names_sm_90a():
