@@ -39,8 +39,7 @@ def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
     queries_f32 = torch.as_tensor(queries, device=dev).float()
     q = queries_f32.shape[0]
     distance_fn = make_pq_distance_fn(
-        queries_f32, index.codebook, index.codes, fused_rows=index.fused_rows,
-        impl=params.pq_impl,
+        queries_f32, index.codebook, index.codes, fused_rows=index.fused_rows
     )
     entry_ids, entry_dists = entry_points(index, queries_f32, params)
     final = run_traversal(

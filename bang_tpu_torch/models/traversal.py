@@ -12,7 +12,7 @@ The loop runs on the host and reads `active.any()` back once per
 iteration, as the reference reads its `nextIter` flag (parANN.cu:595);
 removing that sync (CUDA graphs over blocks of iterations) is ROADMAP
 Queue 1 item 13. Two distance functions drive it: PQ table lookup
-(`make_pq_distance_fn`, kernels K1 and K2, the `pq_impl` routes) and exact L2
+(`make_pq_distance_fn`, kernels K1 and K2) and exact L2
 (`make_exact_distance_fn`, kernel K3). The bloom visited set belongs to a
 later slice.
 """
@@ -29,7 +29,6 @@ from bang_tpu_torch.ops.l2 import l2_distance_to_candidates
 from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_parents_beam
 from bang_tpu_torch.ops.pq import pack_tables, pq_distance_tables
 from bang_tpu_torch.ops.pq_kernels import frontier_decode_plain, frontier_lookup, pq_lookup
-from bang_tpu_torch.ops.probe_kernels import lookup_packed
 from bang_tpu_torch.ops.visited import exact_new_mask, first_occurrence_mask_blocks
 
 
@@ -83,10 +82,10 @@ def check_params(params) -> None:
         raise NotImplementedError(
             "visited_mode='bloom' is not ported yet (ROADMAP Queue 1 item 15)"
         )
-    if params.pq_impl == "pallas_dma":
+    if params.pq_impl != "auto":
         raise ValueError(
-            "pq_impl='pallas_dma' names the TPU's DMA-tiled fused rows, which "
-            "the port does not have; use 'pallas', 'xla' or 'auto'"
+            f"pq_impl={params.pq_impl!r} names a JAX kernel; the port picks "
+            "its kernel from the index layout and the tensors' device"
         )
 
 
@@ -241,45 +240,30 @@ def make_exact_distance_fn(queries_f32, vectors, nbr_vecs=None,
     return distance_fn
 
 
-def make_pq_distance_fn(queries_f32, codebook, codes, fused_rows=None,
-                        impl: str = "auto"):
+def make_pq_distance_fn(queries_f32, codebook, codes, fused_rows=None):
     """Traversal distance: PQ table lookup (BANG_Base/Inmemory behavior).
     Tables are built once per batch.
 
     Without fused rows, `distance_fn(cand_ids, parents)` gathers each
-    candidate's codes and runs K1 (`pq_lookup`) on f32 tables, under every
-    `impl` (K1's packed form, K4, is not on a search path yet). With
-    fused_rows [N, R*(4+m)] u8 it also carries `frontier_fn(parents)`, which
-    yields ids and distances from the ungathered rows, and the degree `r`.
-    `impl` picks that fused route, with the JAX package's meanings:
-
-      "pallas"  pack the tables once per batch (`pack_tables`, bf16 pairs)
-                and run K2 (`frontier_lookup`; its plain version for CPU
-                tensors). The f32 tables are dropped after packing;
-                `distance_fn`, which the walk does not call on this route,
-                reads the packed tables through K4 (`lookup_packed`), as
-                JAX's does through `pq_lookup_packed`.
-      "xla"     `frontier_decode_plain` on the f32 tables, no kernel.
-      "auto"    "pallas" on a CUDA device, "xla" on the CPU.
-
-    "pallas_dma" names the TPU's DMA-tiled rows, which the port does not
-    have, and raises. `seed_fn` gives the shared entry node's distance
-    directly from its reconstructed vector."""
-    if impl == "auto":
-        impl = "pallas" if queries_f32.device.type == "cuda" else "xla"
-    if impl not in ("pallas", "xla"):
-        raise ValueError(
-            f"pq_impl={impl!r}: the port takes 'pallas', 'xla' or 'auto' (the "
-            "TPU's DMA-tiled rows of 'pallas_dma' are not ported)"
-        )
+    candidate's codes and runs K1 (`pq_lookup`) on f32 tables (K1's packed
+    form, K4, is not on a search path yet). With fused_rows [N, R*(4+m)] u8
+    it carries `frontier_fn(parents)` instead, which yields ids and
+    distances from the ungathered rows, and the degree `r`. The device
+    picks the fused route, as the JAX package's `impl="auto"` does: on a
+    CUDA device the tables are packed once per batch (`pack_tables`, bf16
+    pairs) and K2 (`frontier_lookup`) reads them, the f32 tables dropped; on
+    the CPU `frontier_decode_plain` reads the f32 tables (JAX's
+    `frontier_decode_xla`, what the JAX package runs there). `seed_fn` gives
+    the shared entry node's distance directly from its reconstructed
+    vector."""
     m = codebook.num_chunks
     tables = pq_distance_tables(codebook, queries_f32)
-    if fused_rows is not None and impl == "pallas":
+    if fused_rows is not None and queries_f32.device.type == "cuda":
         packed = pack_tables(tables)
         del tables  # nothing on this route reads the f32 tables
 
         def distance_fn(cand_ids, parents=None):
-            return lookup_packed(packed, codes[cand_ids.long()])  # [Q, C, m] gather
+            raise RuntimeError("the fused route yields distances through frontier_fn")
 
         def frontier_fn(parents):
             return frontier_lookup(packed, fused_rows, parents)

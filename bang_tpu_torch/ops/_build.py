@@ -12,8 +12,8 @@ and the flags: a changed source rebuilds, an unchanged one is loaded as is.
 several kernels build in the time of the slowest. nvcc is found through
 `torch.utils.cpp_extension.CUDA_HOME`.
 
-Also here: the argument checks and the device routing that every kernel
-wrapper shares (`check_tensor`, `route`).
+Also here: the argument checks and the device routing that the kernel
+wrappers share (`check_tensor`, `check_packed`, `check_aligned`, `route`).
 """
 
 from __future__ import annotations
@@ -49,6 +49,11 @@ SIGNATURES = {
     "frontier_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "row_gather": (_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _P),
 }
+
+# An H100 block can use at most 227 KB (232,448 bytes) of shared memory.
+MAX_SHARED_BYTES = 232_448
+# Kernels over bf16-pair tables stage one query's m x 128 int32 table there.
+MAX_PACKED_CHUNKS = MAX_SHARED_BYTES // (128 * 4)  # 454
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict[str, dict] = {}  # name -> {"seconds", "cached", "log"}
@@ -159,6 +164,29 @@ def check_tensor(name, t, dtype, ndim) -> None:
         )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_packed(packed) -> tuple[int, int]:
+    """Raise unless `packed` is a [Q, m, 128] int32 bf16-pair table
+    (ops/pq.pack_tables) whose m x 128 words fit in shared memory; returns
+    (Q, m)."""
+    check_tensor("packed", packed, torch.int32, 3)
+    q, m, w = packed.shape
+    if w != 128:
+        raise ValueError(f"packed must be [Q, m, 128], got {tuple(packed.shape)}")
+    if not 1 <= m <= MAX_PACKED_CHUNKS:
+        raise ValueError(
+            f"m={m} chunks: the kernel stages an m x 128 int32 table in shared "
+            f"memory and takes 1 <= m <= {MAX_PACKED_CHUNKS}"
+        )
+    return q, m
+
+
+def check_aligned(packed) -> None:
+    """Raise unless `packed` starts on a 16-byte boundary: the kernels
+    stage packed tables with 16-byte loads."""
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must start on a 16-byte boundary")
 
 
 def route(*tensors) -> str:

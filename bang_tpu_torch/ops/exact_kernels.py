@@ -23,13 +23,12 @@ from __future__ import annotations
 import torch
 
 from bang_tpu_torch.constants import MAX_R
-from bang_tpu_torch.ops._build import check_tensor, route
+from bang_tpu_torch.ops._build import MAX_SHARED_BYTES, check_tensor, route
 from bang_tpu_torch.ops.l2 import decode_exact_frontier_rows, l2_distance_to_candidates
 
 MAX_BEAM = 16  # SearchParams.beam_width's bound
 # A block stages the query [D] and the beam*R neighbor norms as f32 in shared
-# memory; an H100 block can use at most 227 KB (232,448 bytes) of it.
-MAX_SHARED_BYTES = 232_448
+# memory (MAX_SHARED_BYTES at most).
 
 
 def exact_frontier_plain(queries_f32, rows, parents):

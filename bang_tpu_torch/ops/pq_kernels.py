@@ -25,7 +25,8 @@ reads on its accelerator (`pack_tables`; ops/pq.py, bit-identical to
 JAX's), so its sums are the bf16 entries' and equal K6 + K5's bit for bit.
 K1 still streams f32 tables; its packed form, K4, is measured but not on a
 search path. `frontier_decode_plain` is the fused route's f32 decode, JAX's
-`frontier_decode_xla`: the route the CPU takes under `impl="auto"`.
+`frontier_decode_xla`: the route the CPU takes, as under JAX's
+`impl="auto"`.
 """
 
 from __future__ import annotations
@@ -33,23 +34,26 @@ from __future__ import annotations
 import torch
 
 from bang_tpu_torch.constants import INVALID_ID, MAX_R
-from bang_tpu_torch.ops._build import check_tensor, route
+from bang_tpu_torch.ops._build import (
+    MAX_SHARED_BYTES,
+    check_aligned,
+    check_packed,
+    check_tensor,
+    route,
+)
 from bang_tpu_torch.ops.adjacency import decode_adj_planes, pack_adj_planes
 from bang_tpu_torch.ops.exact_kernels import exact_frontier
 from bang_tpu_torch.ops.pq import pack_tables, unpack_tables  # noqa: F401
 from bang_tpu_torch.ops.pq import pq_lookup as pq_lookup_plain
 from bang_tpu_torch.ops.probe_kernels import (
-    MAX_SHARED_BYTES,
-    _check_aligned,
-    _check_packed,
     frontier_packed,
     frontier_packed_plain,
     lookup_packed,
     row_gather,
 )
 
-# K1 stages one query's m x 256 f32 table in shared memory; an H100 block
-# can use at most 227 KB (MAX_SHARED_BYTES = 232,448 bytes) of it.
+# K1 stages one query's m x 256 f32 table in shared memory (MAX_SHARED_BYTES
+# at most).
 MAX_CHUNKS = MAX_SHARED_BYTES // (256 * 4)  # 227
 MAX_BEAM = 16  # SearchParams.beam_width's bound
 
@@ -94,8 +98,7 @@ def frontier_lookup_plain(packed, fused_rows, parents):
 def frontier_decode_plain(tables, fused_rows, parents):
     """The fused-row decode over f32 tables (the counterpart of the JAX
     `frontier_decode_xla`): row gather + byte-plane decode +
-    pq_lookup_plain. The fused route's `impl="xla"`; no kernel sits behind
-    it.
+    pq_lookup_plain. The fused route on the CPU; no kernel sits behind it.
 
     tables [Q, m, 256] f32; fused_rows [N, R*(4+m)] u8; parents [Q, beam]
     int32 in [0, N). Returns (ids [Q, beam*R] i32, dists [Q, beam*R] f32)."""
@@ -166,8 +169,8 @@ def frontier_lookup(packed: torch.Tensor, fused_rows: torch.Tensor,
     of the m bf16 entries of neighbor j of parent b, added in chunk order;
     a parent outside [0, N) gives id -1 and +inf. Returns (ids [Q, beam*R]
     i32, dists [Q, beam*R] f32)."""
-    q, m = _check_packed(packed)
-    _check_aligned(packed)
+    q, m = check_packed(packed)
+    check_aligned(packed)
     check_tensor("fused_rows", fused_rows, torch.uint8, 2)
     check_tensor("parents", parents, torch.int32, 2)
     n, row_w = fused_rows.shape

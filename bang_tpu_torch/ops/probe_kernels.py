@@ -34,35 +34,12 @@ from __future__ import annotations
 import torch
 
 from bang_tpu_torch.constants import MAX_R
-from bang_tpu_torch.ops._build import check_tensor, route
+from bang_tpu_torch.ops._build import check_aligned, check_packed, check_tensor, route
 from bang_tpu_torch.ops.adjacency import decode_adj_planes
 from bang_tpu_torch.ops.pq import pq_lookup, unpack_tables
 
-# A block stages one query's m x 128 int32 packed table in shared memory; an
-# H100 block can use at most 227 KB (232,448 bytes) of it.
-MAX_SHARED_BYTES = 232_448
-MAX_CHUNKS = MAX_SHARED_BYTES // (128 * 4)  # 454
 MAX_BEAM = 16  # SearchParams.beam_width's bound
 ID_PLANES = (0, 4)
-
-
-def _check_packed(packed):
-    check_tensor("packed", packed, torch.int32, 3)
-    q, m, w = packed.shape
-    if w != 128:
-        raise ValueError(f"packed must be [Q, m, 128], got {tuple(packed.shape)}")
-    if not 1 <= m <= MAX_CHUNKS:
-        raise ValueError(
-            f"m={m} chunks: the kernel stages an m x 128 int32 table in shared "
-            f"memory and takes 1 <= m <= {MAX_CHUNKS}"
-        )
-    return q, m
-
-
-def _check_aligned(packed):
-    """The kernels stage the packed table with 16-byte loads."""
-    if packed.data_ptr() % 16:
-        raise ValueError("packed must start on a 16-byte boundary")
 
 
 def lookup_packed_plain(packed, codes):
@@ -76,7 +53,7 @@ def lookup_packed(packed: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
     packed: [Q, m, 128] int32 (pack_tables); codes: [Q, C, m] u8; both
     contiguous, on one device. Returns [Q, C] f32."""
-    q, m = _check_packed(packed)
+    q, m = check_packed(packed)
     check_tensor("codes", codes, torch.uint8, 3)
     if codes.shape[0] != q or codes.shape[2] != m:
         raise ValueError(
@@ -84,7 +61,7 @@ def lookup_packed(packed: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
         )
     if route(packed, codes) == "cpu":
         return lookup_packed_plain(packed, codes)
-    _check_aligned(packed)
+    check_aligned(packed)
     from bang_tpu_torch.ops import _build
 
     c = codes.shape[1]
@@ -127,7 +104,7 @@ def frontier_packed(packed: torch.Tensor, rows: torch.Tensor, r: int,
     the fused frontier rows, or 0), then m chunk-major groups of R codes;
     all contiguous, on one device. Returns (ids [Q, beam*R] int32, or None
     when id_planes == 0, dists [Q, beam*R] f32)."""
-    q, m = _check_packed(packed)
+    q, m = check_packed(packed)
     check_tensor("rows", rows, torch.uint8, 3)
     if id_planes not in ID_PLANES:
         raise ValueError(f"id_planes must be one of {ID_PLANES}, got {id_planes}")
@@ -145,7 +122,7 @@ def frontier_packed(packed: torch.Tensor, rows: torch.Tensor, r: int,
         )
     if route(packed, rows) == "cpu":
         return frontier_packed_plain(packed, rows, r, id_planes)
-    _check_aligned(packed)
+    check_aligned(packed)
     from bang_tpu_torch.ops import _build
 
     c = beam * r

@@ -17,7 +17,9 @@ the card by chip_smoke.py. Held against the JAX package:
     same bf16 entries, only the order of the f32 sum differs;
   * K2 equal bit for bit to K5's plain version on the gathered rows, ids
     up to 2^30 (byte planes 2 and 3 non-zero) and at R=24, which the JAX
-    kernels do not take.
+    kernels do not take; its distances there also within the same
+    tolerance of a numpy sum, in chunk order, of the bf16 entries of JAX's
+    packing.
 """
 
 import jax.numpy as jnp
@@ -64,6 +66,20 @@ def _k2(tables, rows, parents):
     """K2 through its wrapper on the port's packing of `tables`."""
     packed = k.pack_tables(torch.from_numpy(tables))
     return k.frontier_lookup(packed, torch.from_numpy(rows), torch.from_numpy(parents))
+
+
+def _numpy_bf16_sums(tables, rows, parents, r, m):
+    """dists [Q, beam*R]: JAX's packed words unpacked in numpy and summed
+    in f32 in chunk order 0..m-1, independent of the port's code."""
+    q, beam = parents.shape
+    words = np.asarray(jpp.pack_tables(jnp.asarray(tables))).view(np.uint32)
+    halves = np.stack([words & 0xFFFF, words >> 16], axis=-1).reshape(q, m, 256)
+    entries = (halves << 16).astype(np.uint32).view(np.float32)
+    codes = rows[parents][..., 4 * r :].reshape(q, beam, m, r).astype(np.int64)
+    acc = np.zeros((q, beam, r), np.float32)
+    for c in range(m):
+        acc += np.take_along_axis(entries[:, None, c, :], codes[:, :, c, :], axis=2)
+    return acc.reshape(q, beam * r)
 
 
 def test_k1_plain_matches_jax_lookup():
@@ -150,7 +166,8 @@ def test_k2_plain_matches_pallas_dma_interpret():
 @pytest.mark.parametrize("r,m,beam", [(32, 32, 2), (24, 12, 4), (64, 64, 2)])
 def test_k2_ids_bit_exact_hand_packed(r, m, beam):
     """Every id of every parent comes back, up to 2^30, at any R; the
-    distances are K5's plain version's on the gathered rows, bit for bit."""
+    distances are K5's plain version's on the gathered rows, bit for bit,
+    and within tolerance of the numpy sum of JAX's bf16 entries."""
     rng = np.random.default_rng(30 + r)
     tables, rows, parents, ids = _fused_case(rng, 9, 150, r, m, beam, 1 << 30)
     assert (ids >= 1 << 24).any()  # plane 3 is non-zero somewhere
@@ -159,6 +176,8 @@ def test_k2_ids_bit_exact_hand_packed(r, m, beam):
     want_ids, want_d = frontier_packed_plain(
         k.pack_tables(torch.from_numpy(tables)), torch.from_numpy(rows[parents]), r, 4)
     assert torch.equal(got_ids, want_ids) and torch.equal(got_d, want_d)
+    ref = _numpy_bf16_sums(tables, rows, parents, r, m)
+    _close(got_d, ref, 1e-5, 1e-5 * np.abs(ref).max(-1, keepdims=True))
 
 
 def test_k2_out_of_range_parents_give_invalid_lanes():

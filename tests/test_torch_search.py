@@ -9,10 +9,11 @@ terms of that size). The PQ distances that steer the
 walk are f32 sums in a different order, which can flip a near-tie; that
 is why ids are held per row at 99% and not bit-exact.
 
-The port's fused route takes JAX's `pq_impl`: "auto" is the f32 decode on
-the CPU (what the JAX comparison runs) and K2 over bf16-pair tables on the
-card; "pallas" forces the packed route on the CPU too, whose recall@10
-stays within 1.0 point of "auto" (bf16 entries move PQ sums by ~0.2%).
+The device picks the port's fused route, as JAX's pq_impl="auto" does:
+the f32 decode on the CPU (what the JAX comparison runs), K2 over bf16-pair
+tables on the card. K2's plain version, called here on the CPU in the f32
+decode's place, keeps recall@10 within 1.0 point of it (bf16 entries move
+PQ sums by ~0.2%).
 """
 
 import numpy as np
@@ -28,7 +29,8 @@ from bang_tpu.utils.recall import calculate_recall
 from bang_tpu_torch.api import BANGSearch
 from bang_tpu_torch.models.index import device_index_from_files
 from bang_tpu_torch.models.inmemory import search_inmemory
-from bang_tpu_torch.models.traversal import make_pq_distance_fn, rerank_topk
+from bang_tpu_torch.models.entry import entry_points
+from bang_tpu_torch.models.traversal import make_pq_distance_fn, rerank_topk, run_traversal
 from bang_tpu_torch.ops import pq_kernels as pk
 from bang_tpu_torch.ops.pq import pq_distance_tables
 
@@ -103,43 +105,50 @@ def test_scattered_layout_matches_fused(fused64_index):
     assert a_st.iters == b_st.iters and a_st.n_dist_comps == b_st.n_dist_comps
 
 
-def test_pallas_route_recall_matches_auto(tiny_index):
-    """pq_impl="pallas" on the CPU runs K2's plain version over the packed
-    tables: recall@10 within 1.0 point of "auto" (the f32 decode), the
-    iteration count within 1."""
+def test_bf16_fused_route_recall_matches_f32(tiny_index):
+    """The walk steered by K2 (its plain version, on CPU tensors) over the
+    packed tables, as on the card, in place of the CPU's f32 decode:
+    recall@10 within 1.0 point, the iteration count within 1."""
     prefix, queries, gt_ids, gt_dists = _bundle(tiny_index)
     index = device_index_from_files(prefix, "cpu")
-    out = {}
-    for impl in ("auto", "pallas"):
-        params = SearchParams(L=32, k=10, beam_width=2, extra_iters=12, pq_impl=impl)
-        ids, _, stats = search_inmemory(index, queries, params)
-        out[impl] = calculate_recall(gt_ids, ids.numpy(), 10, gt_dists), stats.iters
-    assert abs(out["pallas"][0] - out["auto"][0]) <= 1.0, out
-    assert abs(out["pallas"][1] - out["auto"][1]) <= 1, out
-    assert out["pallas"][0] > 80.0
+    assert index.fused_rows is not None
+    params = SearchParams(L=32, k=10, beam_width=2, extra_iters=12)
+    f32_ids, _, f32_stats = search_inmemory(index, queries, params)
+
+    q = torch.as_tensor(queries).float()
+    fn = make_pq_distance_fn(q, index.codebook, index.codes, index.fused_rows)
+    packed = pk.pack_tables(pq_distance_tables(index.codebook, q))
+    fn.frontier_fn = lambda parents: pk.frontier_lookup(packed, index.fused_rows, parents)
+    entry_ids, entry_dists = entry_points(index, q, params)
+    final = run_traversal(index.adj, fn, index.medoid, q.shape[0], params.L,
+                          params.max_iters, params.beam_width, q.device,
+                          entry_ids=entry_ids, entry_dists=entry_dists)
+    bf16_ids, _ = rerank_topk(q, index.vectors, final.visited_ids, params.k)
+
+    r_f32 = calculate_recall(gt_ids, f32_ids.numpy(), 10, gt_dists)
+    r_bf16 = calculate_recall(gt_ids, bf16_ids.numpy(), 10, gt_dists)
+    assert abs(r_bf16 - r_f32) <= 1.0, (r_bf16, r_f32)
+    assert abs(final.it - f32_stats.iters) <= 1, (final.it, f32_stats.iters)
+    assert r_bf16 > 80.0
 
 
-def test_pq_impl_routes_the_fused_frontier(fused64_index):
-    """"xla" and "auto" on the CPU decode f32 tables; "pallas" runs K2's
-    plain version on pack_tables of the same tables; "pallas_dma" raises,
-    here and in search_inmemory."""
+def test_cpu_fused_route_is_f32_decode_and_pq_impl_auto_only(fused64_index):
+    """On the CPU the fused frontier is the f32 decode and K1 stays callable;
+    every pq_impl but "auto" names a JAX kernel and raises."""
     prefix, queries, _, _ = _bundle(fused64_index)
     index = device_index_from_files(prefix, "cpu")
     q = torch.as_tensor(queries[:6]).float()
     parents = torch.tensor([[0, 5], [7, 7], [1, 2], [3, 4], [9, 8], [6, 0]],
                            dtype=torch.int32)
     tables = pq_distance_tables(index.codebook, q)
-    want_f32 = pk.frontier_decode_plain(tables, index.fused_rows, parents)
-    want_bf16 = pk.frontier_lookup_plain(pk.pack_tables(tables), index.fused_rows, parents)
-    for impl, want in (("auto", want_f32), ("xla", want_f32), ("pallas", want_bf16)):
-        fn = make_pq_distance_fn(q, index.codebook, index.codes, index.fused_rows, impl)
-        got = fn.frontier_fn(parents)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), impl
-    assert not torch.equal(want_f32[1], want_bf16[1])
-    with pytest.raises(ValueError, match="pallas_dma"):
-        make_pq_distance_fn(q, index.codebook, index.codes, index.fused_rows, "pallas_dma")
-    with pytest.raises(ValueError, match="pallas_dma"):
-        search_inmemory(index, queries[:2], SearchParams(L=16, pq_impl="pallas_dma"))
+    want = pk.frontier_decode_plain(tables, index.fused_rows, parents)
+    fn = make_pq_distance_fn(q, index.codebook, index.codes, index.fused_rows)
+    got = fn.frontier_fn(parents)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(fn(want[0], parents), want[1])
+    for impl in ("pallas", "xla", "pallas_dma"):
+        with pytest.raises(ValueError, match="pq_impl"):
+            search_inmemory(index, queries[:2], SearchParams(L=16, pq_impl=impl))
 
 
 def test_api_returns_int64_and_rejects_unported(fused64_index):
