@@ -31,5 +31,9 @@ NUMPY_TO_DTYPE_CODE = {v: k for k, v in DTYPE_CODE_TO_NUMPY.items()}
 ENUM_DIST_L2 = 0
 ENUM_DIST_MIPS = 1
 
+# Capability bitmask (reference: BANG_Inmemory/parANN.cu:37-38).
+ENABLE_GPU_STATS = 0x1
+ENABLE_CACHE_WARMUP = 0x2
+
 # Invalid node-id sentinel used in worklists / visited lists.
 INVALID_ID = -1

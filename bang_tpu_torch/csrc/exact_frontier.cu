@@ -18,149 +18,248 @@
 // the DMA form, the kernel reads each parent's row itself, so no
 // [Q, beam, row] copy is written to device memory. None of the Mosaic limits
 // carry over (R = 64 only, D % 128 == 0, 8-sublane DMA-tiled rows): any
-// R <= 64, any D whose query fits shared memory, any beam <= 16, flat rows.
+// R <= 64, any beam <= 16, any D whose query and one row fit shared memory,
+// flat rows. A parent outside [0, N) reads nothing and yields id -1 and
+// +inf.
 //
 // What bounds it on an H100: bytes. At the main path's shape (Q=10K, beam 1,
 // R=64, D=128) each call reads 87.0 MB of rows (10K x 8,704 B) and 5.1 MB of
 // queries and writes 5.1 MB of ids and distances: ~97 MB, a floor of ~29 us
 // at 3.35 TB/s. The arithmetic (10K x 64 x 128 FMAs, 0.16 GFLOP) is far
-// below the f32 rate.
+// below the f32 rate. The first form of this kernel made four dependent
+// trips to memory per block (query, parents and id/norm planes, parents
+// again, then each neighbor's vector a warp at a time) and had ~1 KB a block
+// in flight: latency bound at ~4.6x its floor.
 //
-// Design: one block per query. The block stages the query in shared memory
-// and reduces ||q||^2; one thread per (parent, neighbor) lane decodes the
-// id and the norm from the planes (coalesced: the R lanes of one parent read
-// R consecutive bytes of each plane). Then one warp per neighbor reads the
-// neighbor's D bytes, 4 bytes a lane when D and the row base allow it and a
-// byte a lane otherwise, does f32 FMAs against the staged query and reduces
-// across the warp with shuffles. With u8 vectors, integer-valued queries and
-// D <= 128, every partial sum is an integer below 2^24, so the result is
-// exact whatever the summation order. A parent outside [0, N) reads nothing
-// and yields id -1 and +inf.
+// Design (K2's, csrc/frontier_lookup.cu): one block per query, and no thread
+// waits on a load it issued.
+//   1. Every thread issues 16-byte cp.async.cg copies of the f32 query and
+//      of its parents' rows into dynamic shared memory, one commit group for
+//      all of them. Rows whose width or base is not a multiple of 16 go by
+//      4-byte cp.async, or by plain byte copies when not even 4 divides
+//      them (the query by 4-byte copies when 4D or its base is not a
+//      multiple of 16). A beam whose rows do not fit kSmemTarget beside the
+//      query goes through in equal groups of parents.
+//   2. cp.async.wait_group 0, __syncthreads().
+//   3. From shared memory only. Each warp takes 32 (parent, neighbor) lanes
+//      at a time. Its 32 threads read the 32 vectors word by word: thread k
+//      reads u32 word k (+32, +64, ...) of every vector in turn, so the
+//      warp reads 32 consecutive words of one vector at once (no bank
+//      conflict, where one thread per vector would put all 32 on one bank:
+//      vectors are D = 128 bytes apart) and keeps its 4 query values in
+//      registers across the 32 vectors. The 32 partial sums of each thread
+//      are then reduced across the warp by a transposing butterfly (31
+//      shuffles in all, not 5 per vector), after which thread k holds the
+//      cross term of lane k: it decodes that lane's id and norm and writes
+//      both outputs, coalesced. Bytes become f32 by an exact bit trick
+//      (2^23 + b has an ulp of 1), not by the slower int-to-float unit.
+//      D % 4 != 0 reads a byte a thread in place of a word.
+// With u8 vectors, integer-valued queries and D <= 128, every partial sum is
+// an integer below 2^24, so the result is exact whatever the summation
+// order. The block is C = beam*R lanes rounded up to a warp, at most 256
+// threads: 64 threads and ~9.2 KB at the main shape, so many blocks share
+// an SM and one block's compute overlaps the others' copies.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 256;
+constexpr int kSmemTarget = 48 * 1024;  // the query + a group of parent rows
+constexpr unsigned kFull = 0xffffffffu;
 
-// VW: bytes each lane loads at a time, 4 (one u32) or 1.
-template <int VW>
-__global__ void exact_frontier_kernel(const float* __restrict__ queries,
-                                      const uint8_t* __restrict__ rows,
-                                      const int32_t* __restrict__ parents,
-                                      int32_t* __restrict__ ids,
-                                      float* __restrict__ dists, int64_t n,
-                                      int r, int d, int beam) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [d] the query
-  float* norms = qs + d;                        // [beam * r] neighbor norms
-  __shared__ float qn_part[kWarps];
+// Byte K of w as an exact f32: the bits of 2^23 + b, less 2^23.
+template <int K>
+__device__ __forceinline__ float byte_f32(uint32_t w) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 + K)) - 8388608.0f;
+}
 
-  const int64_t q = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = beam * r;
-  const int64_t row_w = (int64_t)r * (8 + d);
-
-  // stage the query and reduce ||q||^2
-  const float* qsrc = queries + q * d;
+// ||q||^2 of the staged query, reduced by one warp (every lane gets it).
+__device__ __forceinline__ float warp_squared_norm(const float* qs, int d, int lane) {
   float part = 0.0f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float x = qsrc[i];
-    qs[i] = x;
-    part = fmaf(x, x, part);
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    part += __shfl_xor_sync(0xffffffffu, part, off);
-  if (lane == 0) qn_part[warp] = part;
+  for (int k = lane; k < d; k += 32) part = fmaf(qs[k], qs[k], part);
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(kFull, part, off);
+  return part;
+}
 
-  // ids and norms: one thread per candidate lane
-  for (int t = threadIdx.x; t < c; t += kThreads) {
-    const int b = t / r;
-    const int j = t - b * r;
-    const int64_t p = parents[q * beam + b];
-    const int64_t o = q * c + t;
-    if (p < 0 || p >= n) {
-      ids[o] = -1;
-      continue;
-    }
-    const uint8_t* row = rows + p * row_w;
-    ids[o] = (int32_t)((uint32_t)row[j] | ((uint32_t)row[r + j] << 8) |
-                       ((uint32_t)row[2 * r + j] << 16) |
-                       ((uint32_t)row[3 * r + j] << 24));
-    norms[t] = __uint_as_float(
-        (uint32_t)row[4 * r + j] | ((uint32_t)row[5 * r + j] << 8) |
-        ((uint32_t)row[6 * r + j] << 16) | ((uint32_t)row[7 * r + j] << 24));
-  }
-  __syncthreads();
-  float qn = 0.0f;
-  for (int w = 0; w < kWarps; ++w) qn += qn_part[w];
-
-  // cross terms: one warp per candidate lane
-  for (int t = warp; t < c; t += kWarps) {
-    const int b = t / r;
-    const int j = t - b * r;
-    const int64_t p = parents[q * beam + b];
-    const int64_t o = q * c + t;
-    if (p < 0 || p >= n) {
-      if (lane == 0) dists[o] = INFINITY;
-      continue;
-    }
-    const uint8_t* vec = rows + p * row_w + 8 * r + (int64_t)j * d;
-    float s = 0.0f;
-    if (VW == 4) {
-      const uint32_t* v4 = reinterpret_cast<const uint32_t*>(vec);
-      const float4* q4 = reinterpret_cast<const float4*>(qs);
-      for (int k = lane; k < d / 4; k += 32) {
-        const uint32_t w = __ldg(v4 + k);
-        const float4 x = q4[k];
-        s = fmaf(x.x, (float)(w & 0xffu), s);
-        s = fmaf(x.y, (float)((w >> 8) & 0xffu), s);
-        s = fmaf(x.z, (float)((w >> 16) & 0xffu), s);
-        s = fmaf(x.w, (float)(w >> 24), s);
-      }
-    } else {
-      for (int k = lane; k < d; k += 32) s = fmaf(qs[k], (float)__ldg(vec + k), s);
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) dists[o] = fmaxf(norms[t] - 2.0f * s + qn, 0.0f);
+// One level of the transposing butterfly over acc[0 .. 2*O): each lane
+// keeps the half of its partial sums that its side of the pair (lane ^ O)
+// owns and adds its partner's sums of the same vectors. O is a template
+// argument so that every index is known at compile time and acc stays in
+// registers.
+template <int O>
+__device__ __forceinline__ void butterfly(float (&acc)[32], int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = upper ? acc[i] : acc[i + O];
+    const float keep = upper ? acc[i + O] : acc[i];
+    acc[i] = keep + __shfl_xor_sync(kFull, send, O);
   }
 }
 
+// q . v for the 32 vectors at rowbuf + (lane k's `vec_off`), k = 0..31;
+// returns lane k's. VW: bytes each thread reads at a time, 4 or 1.
 template <int VW>
-cudaError_t launch(const void* queries, const void* rows, const void* parents,
-                   void* ids, void* dists, long long n, int q, int r, int d,
-                   int beam, cudaStream_t stream) {
-  const size_t smem = (size_t)(d + beam * r) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      exact_frontier_kernel<VW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  exact_frontier_kernel<VW><<<q, kThreads, smem, stream>>>(
-      static_cast<const float*>(queries), static_cast<const uint8_t*>(rows),
-      static_cast<const int32_t*>(parents), static_cast<int32_t*>(ids),
-      static_cast<float*>(dists), (int64_t)n, r, d, beam);
-  return cudaGetLastError();
+__device__ __forceinline__ float warp_cross_terms(const float* qs, const uint8_t* rowbuf,
+                                                  int vec_off, int d, int lane) {
+  float acc[32];
+#pragma unroll
+  for (int v = 0; v < 32; ++v) acc[v] = 0.0f;
+  if (VW == 4) {
+    const int words = d >> 2;
+    const float4* q4 = reinterpret_cast<const float4*>(qs);
+    for (int w = lane; w - lane < words; w += 32) {  // the same trips for all lanes
+      const bool in = w < words;
+      const float4 x = in ? q4[w] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const int off = __shfl_sync(kFull, vec_off, v);
+        const uint32_t b4 =
+            in ? *reinterpret_cast<const uint32_t*>(rowbuf + off + 4 * w) : 0u;
+        acc[v] = fmaf(x.x, byte_f32<0>(b4), acc[v]);
+        acc[v] = fmaf(x.y, byte_f32<1>(b4), acc[v]);
+        acc[v] = fmaf(x.z, byte_f32<2>(b4), acc[v]);
+        acc[v] = fmaf(x.w, byte_f32<3>(b4), acc[v]);
+      }
+    }
+  } else {
+    for (int k = lane; k - lane < d; k += 32) {
+      const bool in = k < d;
+      const float x = in ? qs[k] : 0.0f;
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const int off = __shfl_sync(kFull, vec_off, v);
+        const uint32_t b = in ? rowbuf[off + k] : 0u;
+        acc[v] = fmaf(x, byte_f32<0>(b), acc[v]);
+      }
+    }
+  }
+  // after the last level, acc[0] of lane k holds the sum over all 32 lanes
+  // of vector k's partial sums
+  butterfly<16>(acc, lane);
+  butterfly<8>(acc, lane);
+  butterfly<4>(acc, lane);
+  butterfly<2>(acc, lane);
+  butterfly<1>(acc, lane);
+  return acc[0];
+}
+
+// RVEC: bytes per row copy (16, 4 or 1); VW: bytes per vector read (4, 1).
+template <int RVEC, int VW>
+__global__ void __launch_bounds__(kMaxThreads)
+    exact_frontier_kernel(const float* __restrict__ queries,
+                          const uint8_t* __restrict__ rows,
+                          const int32_t* __restrict__ parents,
+                          int32_t* __restrict__ ids, float* __restrict__ dists,
+                          int64_t n, int r, int d, int beam, int group,
+                          int row_pad, int q_pad, int query16) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const float* qs = reinterpret_cast<const float*>(smem);
+  uint8_t* rowbuf = smem + q_pad;
+  const int64_t q = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int row_w = r * (8 + d);
+  const int c = beam * r;
+  const int32_t* qpar = parents + q * beam;
+
+  const uint8_t* qsrc = reinterpret_cast<const uint8_t*>(queries + q * d);
+  if (query16) {
+    copy_to_shared<16>(smem, qsrc, 4 * d);
+  } else {
+    copy_to_shared<4>(smem, qsrc, 4 * d);
+  }
+  float qn = 0.0f;
+  for (int g0 = 0; g0 < beam; g0 += group) {
+    const int gb = min(group, beam - g0);
+    for (int b = 0; b < gb; ++b) {
+      const int64_t p = qpar[g0 + b];
+      if (p >= 0 && p < n)
+        copy_to_shared<RVEC>(rowbuf + b * row_pad, rows + p * row_w, row_w);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (g0 == 0) qn = warp_squared_norm(qs, d, lane);
+
+    const int lanes = gb * r;
+    for (int t0 = warp * 32; t0 < lanes; t0 += n_warps * 32) {
+      const int t = t0 + lane;
+      const bool live = t < lanes;
+      const int b = live ? t / r : 0;
+      const int j = live ? t - b * r : 0;
+      const uint8_t* row = rowbuf + b * row_pad;
+      const float s =
+          warp_cross_terms<VW>(qs, rowbuf, b * row_pad + 8 * r + j * d, d, lane);
+      if (!live) continue;
+      const int64_t p = qpar[g0 + b];
+      const int64_t o = q * c + g0 * r + t;
+      if (p < 0 || p >= n) {
+        ids[o] = -1;
+        dists[o] = INFINITY;
+        continue;
+      }
+      ids[o] = (int32_t)((uint32_t)row[j] | ((uint32_t)row[r + j] << 8) |
+                         ((uint32_t)row[2 * r + j] << 16) |
+                         ((uint32_t)row[3 * r + j] << 24));
+      const float norm = __uint_as_float(
+          (uint32_t)row[4 * r + j] | ((uint32_t)row[5 * r + j] << 8) |
+          ((uint32_t)row[6 * r + j] << 16) | ((uint32_t)row[7 * r + j] << 24));
+      dists[o] = fmaxf(norm - 2.0f * s + qn, 0.0f);
+    }
+    if (g0 + group < beam) __syncthreads();  // the next group reuses rowbuf
+  }
+}
+
+using Kernel = void (*)(const float*, const uint8_t*, const int32_t*, int32_t*, float*,
+                        int64_t, int, int, int, int, int, int, int);
+
+template <int VW>
+Kernel pick(uintptr_t align) {
+  return align % 16 == 0 ? &exact_frontier_kernel<16, VW>
+         : align % 4 == 0 ? &exact_frontier_kernel<4, VW>
+                          : &exact_frontier_kernel<1, VW>;
 }
 
 }  // namespace
 
-// Returns a cudaError_t as int: 0 on a clean launch. u32 loads need every
-// vector 4-byte aligned: D % 4 == 0 (then the row width R*(8+D) and the
-// vector offset 8R + j*D are multiples of 4 too) and a 4-aligned base.
+// Returns a cudaError_t as int: 0 on a clean launch. The query (4D bytes)
+// and one row (R*(8+D)), each rounded up to 16, must fit a block's 227 KB of
+// shared memory (the wrapper checks).
 extern "C" int exact_frontier_launch(const void* queries, const void* rows,
                                      const void* parents, void* ids,
                                      void* dists, long long n, int q, int r,
                                      int d, int beam, void* stream) {
-  const bool aligned4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 4 == 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(aligned4
-                   ? launch<4>(queries, rows, parents, ids, dists, n, q, r, d, beam, s)
-                   : launch<1>(queries, rows, parents, ids, dists, n, q, r, d, beam, s));
+  const int row_w = r * (8 + d);
+  const int row_pad = (row_w + 15) & ~15;
+  const int q_pad = (4 * d + 15) & ~15;
+  // parents per group: as many as fit kSmemTarget beside the query (at
+  // least one), then split evenly over the groups that takes
+  int fit = (kSmemTarget - q_pad) / row_pad;
+  fit = fit < 1 ? 1 : (fit > beam ? beam : fit);
+  const int n_groups = (beam + fit - 1) / fit;
+  const int group = (beam + n_groups - 1) / n_groups;
+  const size_t smem = (size_t)q_pad + (size_t)group * row_pad;
+  const int lanes = group * r;
+  const int threads = lanes >= kMaxThreads ? kMaxThreads : (lanes + 31) / 32 * 32;
+
+  const uintptr_t align = reinterpret_cast<uintptr_t>(rows) | (uintptr_t)row_w;
+  const int query16 = (reinterpret_cast<uintptr_t>(queries) | (uintptr_t)(4 * d)) % 16 == 0;
+  const Kernel kernel = d % 4 == 0 ? pick<4>(align) : pick<1>(align);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<q, threads, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(queries), static_cast<const uint8_t*>(rows),
+      static_cast<const int32_t*>(parents), static_cast<int32_t*>(ids),
+      static_cast<float*>(dists), (int64_t)n, r, d, beam, group, row_pad, q_pad,
+      query16);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* exact_frontier_error_string(int err) {

@@ -51,51 +51,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kWords = 128;                  // packed words per (query, chunk)
 constexpr int kChunkBytes = kWords * 4;      // 512 B of table per chunk
 constexpr int kMaxThreads = 256;
 constexpr int kSmemTarget = 48 * 1024;       // table + a group of parent rows
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile(
-      "cp.async.commit_group;\n"
-      "cp.async.wait_group 0;\n" ::
-          : "memory");
-}
-
-// Copy `bytes` from src to shared dst with the whole block: 16-byte or
-// 4-byte cp.async, or plain byte copies (VEC = 1).
-template <int VEC>
-__device__ __forceinline__ void copy_to_shared(uint8_t* dst, const uint8_t* src,
-                                               int bytes) {
-  for (int i = threadIdx.x; i < bytes / VEC; i += blockDim.x) {
-    if (VEC == 16) {
-      cp_async16(dst + i * 16, src + i * 16);
-    } else if (VEC == 4) {
-      cp_async4(dst + i * 4, src + i * 4);
-    } else {
-      dst[i] = src[i];
-    }
-  }
-}
 
 template <int VEC>
 __global__ void __launch_bounds__(kMaxThreads)

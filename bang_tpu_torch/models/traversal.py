@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from bang_tpu_torch.constants import INVALID_ID
+from bang_tpu_torch.constants import ENABLE_CACHE_WARMUP, ENABLE_GPU_STATS, INVALID_ID
 from bang_tpu_torch.ops.exact_kernels import exact_frontier
 from bang_tpu_torch.ops.l2 import l2_distance_to_candidates
 from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_parents_beam
@@ -86,6 +86,13 @@ def check_params(params) -> None:
         raise ValueError(
             f"pq_impl={params.pq_impl!r} names a JAX kernel; the port picks "
             "its kernel from the index layout and the tensors' device"
+        )
+    if params.capabilities:
+        raise NotImplementedError(
+            f"capabilities={params.capabilities:#x}: the port serves no capability "
+            f"bit yet: ENABLE_GPU_STATS ({ENABLE_GPU_STATS:#x}) waits on the stage "
+            f"timers (ROADMAP Queue 1 item 14), ENABLE_CACHE_WARMUP "
+            f"({ENABLE_CACHE_WARMUP:#x}) on warmup_touch (item 11)"
         )
 
 

@@ -6,8 +6,9 @@ returns `cudaGetLastError()` as an int. No PyTorch header is included, so a
 build takes seconds, not minutes.
 
 The build runs at first use into `bang_tpu_torch/_build/` (listed in
-.gitignore), one shared library per source, named by a hash of the source
-and the flags: a changed source rebuilds, an unchanged one is loaded as is.
+.gitignore), one shared library per source, named by a hash of the source,
+the shared headers (`csrc/*.cuh`) and the flags: a changed source or header
+rebuilds, an unchanged one is loaded as is.
 `build_libraries` starts one nvcc per missing source, all at once, so
 several kernels build in the time of the slowest. nvcc is found through
 `torch.utils.cpp_extension.CUDA_HOME`.
@@ -78,7 +79,8 @@ def nvcc_command(src: str | os.PathLike, out: str | os.PathLike,
 
 def library_path(name: str) -> Path:
     src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

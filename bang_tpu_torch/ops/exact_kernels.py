@@ -14,8 +14,9 @@ raises — there is no fallback. `exact_frontier.launches` counts launches
 (zeroed with the others by `pq_kernels.reset_launch_counts`).
 
 The Mosaic limits of the JAX kernel (R = 64, D % 128 == 0, DMA-tiled rows)
-do not carry over: any R <= MAX_R, any D whose query fits shared memory,
-any beam <= 16, on flat rows.
+do not carry over: any R <= MAX_R, any beam <= 16, any D whose f32 query
+and one parent row fit a block's shared memory (the kernel stages both with
+`cp.async` and takes a wide beam's parents in groups), on flat rows.
 """
 
 from __future__ import annotations
@@ -27,8 +28,12 @@ from bang_tpu_torch.ops._build import MAX_SHARED_BYTES, check_tensor, route
 from bang_tpu_torch.ops.l2 import decode_exact_frontier_rows, l2_distance_to_candidates
 
 MAX_BEAM = 16  # SearchParams.beam_width's bound
-# A block stages the query [D] and the beam*R neighbor norms as f32 in shared
-# memory (MAX_SHARED_BYTES at most).
+
+
+def _pad16(nbytes: int) -> int:
+    """A block's shared memory holds the query and each parent row from a
+    16-byte boundary."""
+    return -(-nbytes // 16) * 16
 
 
 def exact_frontier_plain(queries_f32, rows, parents):
@@ -68,10 +73,12 @@ def exact_frontier(queries_f32: torch.Tensor, rows: torch.Tensor,
         raise ValueError(
             f"parents {tuple(parents.shape)} must be [Q={q}, beam<={MAX_BEAM}]"
         )
-    if 4 * (d + beam * r) > MAX_SHARED_BYTES:
+    query_bytes, row_bytes = _pad16(4 * d), _pad16(row_w)
+    if query_bytes + row_bytes > MAX_SHARED_BYTES:
         raise ValueError(
-            f"D={d}: the kernel stages the query and {beam * r} norms in "
-            f"{MAX_SHARED_BYTES} bytes of shared memory"
+            f"D={d}, R={r}: the kernel stages the f32 query ({query_bytes} B) "
+            f"and at least one parent row ({row_bytes} B) in {MAX_SHARED_BYTES} "
+            "bytes of shared memory"
         )
     if route(queries_f32, rows, parents) == "cpu":
         return exact_frontier_plain(queries_f32, rows, parents)

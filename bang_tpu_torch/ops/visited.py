@@ -1,7 +1,7 @@
 """Exact visited-set filtering (port of bang_tpu/ops/visited.py).
 
 A candidate is new iff it appears in neither the current worklist nor the
-list of already-expanded parents: a dense membership compare with no false
+list of already-expanded parents: an exact membership test with no false
 positives. The reference (BANG) keeps a per-query bloom filter instead; the
 bloom port is ROADMAP Queue 1 item 15.
 
@@ -21,8 +21,28 @@ def exact_new_mask(
 ) -> torch.Tensor:
     """new[q, r] = cand not in worklist and not among expanded parents.
 
-    cand_ids: [Q, R] i32; wl_ids: [Q, L] i32; visited_ids: [Q, MI] i32
-    (INVALID_ID padding never matches valid candidates)."""
+    cand_ids: [Q, C] i32; wl_ids: [Q, L] i32; visited_ids: [Q, MI] i32
+    (INVALID_ID padding never matches valid candidates; an INVALID_ID
+    candidate matches it, as in the dense form).
+
+    The same function as `exact_new_mask_dense`, computed by sorting: one
+    row sort of the worklist and visited ids together ([Q, L + MI]), a
+    binary search of each candidate in its row, and one compare of the id
+    found there. The JAX package writes the dense compare and leaves it to
+    XLA to fuse the compare and the `any` into one reduction; eager PyTorch
+    fuses nothing, so the dense form writes and re-reads [Q, C, L] and
+    [Q, C, MI] bool tensors every iteration."""
+    known = torch.sort(torch.cat([wl_ids, visited_ids], dim=1), dim=1).values
+    idx = torch.searchsorted(known, cand_ids)
+    idx.clamp_(max=known.shape[1] - 1)  # past the row's last id: not found
+    return known.gather(1, idx) != cand_ids
+
+
+def exact_new_mask_dense(
+    cand_ids: torch.Tensor, wl_ids: torch.Tensor, visited_ids: torch.Tensor
+) -> torch.Tensor:
+    """The dense form of `exact_new_mask`, the JAX package's expression: the
+    plain oracle that the tests and chip_smoke.py hold the sorted form to."""
     in_wl = (cand_ids[:, :, None] == wl_ids[:, None, :]).any(-1)
     in_vis = (cand_ids[:, :, None] == visited_ids[:, None, :]).any(-1)
     return ~(in_wl | in_vis)

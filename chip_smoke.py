@@ -19,9 +19,16 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 on the same parents (the same sum in the same order); K3
                 distances bit-exact for integer queries at D <= 128 (every
                 partial sum is an integer below 2^24), else within rtol
-                1e-5 plus atol 1e-5 x (||q||^2 + the row's largest norm).
-                Times each at its main path's shape; K2's bound counts the
-                packed tables' bytes.
+                1e-5 plus atol 1e-5 x (||q||^2 + the row's largest norm),
+                at shapes that take each of its row-copy paths (16-byte,
+                4-byte, byte) and parents in groups, and with parents
+                outside [0, N) (id -1, +inf). Times each at its main path's
+                shape; K2's bound counts the packed tables' bytes.
+  mask        — the sorted visited mask (ops/visited.exact_new_mask, plain
+                PyTorch) identical to its dense form on random ids at both
+                search shapes (Q=10K; C=128 L=128 MI=140 and C=64 L=100
+                MI=106), INVALID_ID padding and candidates included; both
+                timed.
   probes      — K4 lookup_packed, K5 frontier_packed (with and without id
                 planes) and K6 row_gather, the counterparts of the six
                 Pallas probes in scripts/, against their plain versions at
@@ -43,14 +50,15 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 {32, 64, 128, 256, 512}, beam 2, extra_iters 11: recall@10,
                 iterations, wall time and QPS; recall@10 >= 90 at the best L.
                 Then one call at L=128 under torch.profiler, after three
-                timed ones: kernel device ms by name, busy share, peak
-                memory.
+                timed ones, with the sorted visited mask and again with its
+                dense form: kernel device ms by name and by traversal stage,
+                busy share, peak memory.
   6. scattered — the same bundle on the scattered-codes layout (K1) at the
                 best L: recall within 0.5 points of phase 5.
   7. exact    — BANGSearch("exactdistance") on the fused exact rows (K3),
                 L in {10, 16, 30, 60, 100}, beam 1, extra_iters 6: recall@10
                 >= 90 at the best L; no re-rank, so the distances checked are
-                K3's own.
+                K3's own. Then the L=100 profile, as phase 5's.
   8. exact scattered — the scattered exact layout (plain fetch, no kernel)
                 at the best L: ids identical to phase 7 for every query.
   9. sampled  — entry_mode="sampled" at each variant's best L (K3, K2):
@@ -63,6 +71,7 @@ each kernel (its launches summed over those runs, its bound from this run's
 byte and operation counts); the last is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import importlib
 import json
 import os
@@ -80,6 +89,7 @@ BEAM_EXTRA = {"inmemory": (2, 11), "exactdistance": (1, 6)}
 L_SWEEP = (32, 64, 128, 256, 512)
 PROFILE_L = 128  # the in-memory L whose fused search is profiled (PERF.md §5)
 EXACT_L_SWEEP = (10, 16, 30, 60, 100)
+EXACT_PROFILE_L = 100  # the exact L whose fused search is profiled
 VAMANA = {"l_build": 48, "batch": 4096, "alpha": 1.44, "n_passes": 2, "seed": 0}
 RECALL_TARGET = 90.0
 SCATTERED_RECALL_GAP = 0.5
@@ -106,7 +116,17 @@ EXACT_SHAPES = (
     ("R=24 D=100 beam=2", 4096, 100_000, 24, 100, 2, 100_000, True),
     ("ids up to 2^30", 4096, 50_000, 64, 128, 2, 1 << 30, True),
     ("non-integer queries", 4096, 100_000, 64, 128, 1, 100_000, False),
-    ("R=16 D=45 beam=3 (byte loads)", 4096, 50_000, 16, 45, 3, 50_000, True),
+    ("R=16 D=45 beam=3 (byte reads of the vectors)", 4096, 50_000, 16, 45, 3, 50_000, True),
+    # K3's other copy paths: 4-byte and byte copies of rows whose width is
+    # not a multiple of 16 (or 4), and a beam whose rows go in groups
+    ("R=20 D=13 beam=3 (4-byte row copies)", 4096, 50_000, 20, 13, 3, 50_000, True),
+    ("R=15 D=9 beam=2 (byte row copies)", 4096, 50_000, 15, 9, 2, 50_000, True),
+    ("R=64 D=128 beam=16 (parents in groups)", 4096, 100_000, 64, 128, 16, 100_000, True),
+)
+# the visited mask at both search shapes: (label, Q, C candidates, L, MI)
+MASK_SHAPES = (
+    ("inmemory L=128", Q, 2 * R, 128, 140),
+    ("exactdistance L=100", Q, R, 100, 106),
 )
 # K4/K5: (label, Q, N rows, R, m, beam, ids drawn below)
 PROBE_SHAPES = (
@@ -277,6 +297,62 @@ def phase_exact_kernel(gen, dev, result):
                    + parents.numel() * 4 + q * c * 8, 2 * q * c * d)
         del rows, parents, queries, got_ids, got_d, want_ids, want_d, err
         torch.cuda.empty_cache()
+    _k3_out_of_range(gen, dev)
+
+
+def _k3_out_of_range(gen, dev):
+    """K3 with parents outside [0, N): id -1 and +inf on their lanes, the
+    rest bit-exact against the plain version (integer queries)."""
+    from bang_tpu_torch.ops import exact_kernels as ek
+    from bang_tpu_torch.scripts import _common as cm
+
+    n = 5_000
+    rows = cm.exact_rows(gen, n, R, D, n, dev)
+    parents = torch.randint(0, n, (256, 2), generator=gen, device=dev, dtype=torch.int32)
+    parents[::3, 0] = -1
+    parents[1::3, 1] = n
+    queries = torch.randint(0, 256, (256, D), generator=gen, device=dev).float()
+    ids, d = ek.exact_frontier(queries, rows, parents)
+    torch.cuda.synchronize()
+    bad = ((parents < 0) | (parents >= n)).repeat_interleave(R, dim=1)
+    want_ids, want_d = ek.exact_frontier_plain(queries, rows, parents.clamp(0, n - 1))
+    cm.same("exact_frontier out-of-range ids", ids, torch.where(bad, -1, want_ids))
+    cm.same("exact_frontier out-of-range dists", d,
+            torch.where(bad, float("inf"), want_d))
+    log("kernels K3 parents outside [0, N): id -1 and +inf, the rest as plain")
+
+
+def phase_mask(dev):
+    """The sorted visited mask (ops/visited.exact_new_mask, plain PyTorch on
+    the search path) against its dense oracle on the card, at both search
+    shapes, on random ids with INVALID_ID tails and INVALID_ID candidates:
+    identical or raise. Times both."""
+    from bang_tpu_torch.ops import visited
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for label, q, c, l, mi in MASK_SHAPES:
+        def ids(cols):  # a small id range, so that candidates hit both lists
+            return torch.randint(0, 2 * (l + mi), (q, cols), generator=gen,
+                                 device=dev, dtype=torch.int32)
+
+        cand, wl, vis = ids(c), ids(l), ids(mi)
+        cand[torch.rand((q, c), generator=gen, device=dev) < 0.05] = -1
+        wl[:, 3 * l // 4 :] = -1
+        vis[:, mi // 2 :] = -1
+        got = visited.exact_new_mask(cand, wl, vis)
+        want = visited.exact_new_mask_dense(cand, wl, vis)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"exact_new_mask {label}: differs from the dense "
+                                 f"form on {int((got != want).sum())} candidates")
+        t = [_time_ms(lambda: fn(cand, wl, vis)) for fn in (
+            visited.exact_new_mask_dense, visited.exact_new_mask,
+            visited.exact_new_mask, visited.exact_new_mask_dense)]
+        log(f"mask {label} Q={q} C={c} L={l} MI={mi}: sorted identical to dense "
+            f"({float(got.float().mean()):.3f} new); sorted {t[1]:.4f} / {t[2]:.4f} ms, "
+            f"dense {t[0]:.4f} / {t[3]:.4f} ms")
+        del cand, wl, vis, got, want
+    torch.cuda.empty_cache()
 
 
 def _k2_against_k6_k5(packed, rows, parents, ids, dists):
@@ -572,15 +648,51 @@ def run_search(prefix, dev, variant, l_values, fused_frontier=None,
     return rows
 
 
+# the traversal's steps whose device time profile_search reads by name:
+# models/traversal's module globals, each run inside a profiler range. The
+# profiler ties no kernel launched through ctypes (K2, K3) to a range: their
+# times are in the per-kernel rows.
+PROFILE_STAGES = ("exact_new_mask", "first_occurrence_mask_blocks", "merge_worklist",
+                  "select_parents_beam")
+
+
+@contextlib.contextmanager
+def _traversal_stages(mask):
+    """Run the traversal with `mask` as its visited mask and each of
+    PROFILE_STAGES inside a torch.profiler range of its name (the kernels a
+    range launches count towards its device time); restore them after."""
+    from bang_tpu_torch.models import traversal
+
+    saved = {name: getattr(traversal, name) for name in PROFILE_STAGES}
+    fns = {**saved, "exact_new_mask": mask}
+
+    def ranged(name, fn):
+        def run(*args):
+            with torch.profiler.record_function(name):
+                return fn(*args)
+        return run
+
+    try:
+        for name, fn in fns.items():
+            setattr(traversal, name, ranged(name, fn))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(traversal, name, fn)
+
+
 def profile_search(prefix, dev, variant, L):
-    """BANGSearch(variant) at L on the fused layout: three timed calls, then
-    one under torch.profiler. Prints the device ms of each kernel name
-    (summed over the call), their total against the profiled call's wall
-    (the device's busy share) and the peak memory of that call."""
+    """BANGSearch(variant) at L on the fused layout, once with the sorted
+    visited mask and once with its dense form (the JAX expression): each
+    three timed calls, then one under torch.profiler. Prints the device ms
+    of each kernel name and of each traversal stage (PROFILE_STAGES) summed
+    over the call, the kernels' total against the profiled call's wall (the
+    device's busy share) and the peak memory of that call."""
     from torch.profiler import ProfilerActivity, profile
 
     from bang_tpu_torch.api import BANGSearch
     from bang_tpu_torch.formats.bin_io import load_bin
+    from bang_tpu_torch.ops import visited
 
     queries = load_bin(prefix + "_query.bin", np.uint8)
     beam, extra = BEAM_EXTRA[variant]
@@ -588,32 +700,46 @@ def profile_search(prefix, dev, variant, L):
     s.bang_load(prefix)
     s.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra)
     s.bang_alloc(len(queries))
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s.bang_query(queries)
-        walls.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        s.bang_query(queries)
-        wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    iters = s.last_stats.iters
+    for mask_name, mask in (("sorted", visited.exact_new_mask),
+                            ("dense", visited.exact_new_mask_dense)):
+        label = f"profile {variant} L={L} {mask_name} mask"
+        with _traversal_stages(mask):
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.bang_query(queries)
+                walls.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                s.bang_query(queries)
+                wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        # the stage ranges also appear on the device's timeline under their
+        # own names: they are spans, not kernels
+        kernels = sorted(
+            ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0 and e.key not in PROFILE_STAGES),
+            reverse=True)
+        total = sum(k[0] for k in kernels)
+        log(f"{label}: {s.last_stats.iters} iterations; walls of 3 timed calls "
+            + " / ".join(f"{w:.4f}" for w in walls) + f" s; profiled call {wall:.4f} s")
+        for ms, count, key in kernels[:16]:
+            log(f"profile {ms:10.3f} ms {count:6d} calls  {key[:100]}")
+        stages = {}  # name -> [device ms of the kernels each range launched, calls]
+        for e in prof.events():
+            if e.name in PROFILE_STAGES and e.device_type == torch.autograd.DeviceType.CPU:
+                acc = stages.setdefault(e.name, [0.0, 0])
+                acc[0] += e.device_time_total / 1e3
+                acc[1] += 1
+        log(f"{label} stages (kernel ms): " + ", ".join(
+            f"{k} {ms:.3f} ms ({n} calls)" for k, (ms, n) in stages.items()))
+        log(f"{label}: kernels {total:.3f} ms in a {wall * 1e3:.3f} ms wall, busy "
+            f"{total / (wall * 1e3):.1%}; peak {peak / 1e9:.2f} GB")
     s.bang_unload()
-    kernels = sorted(
-        ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
-        reverse=True)
-    total = sum(k[0] for k in kernels)
-    log(f"profile {variant} L={L}: {iters} iterations; walls of 3 timed calls "
-        + " / ".join(f"{w:.4f}" for w in walls) + f" s; profiled call {wall:.4f} s")
-    for ms, count, key in kernels[:16]:
-        log(f"profile {ms:10.3f} ms {count:6d} calls  {key[:100]}")
-    log(f"profile {variant} L={L}: kernels {total:.3f} ms in a {wall * 1e3:.3f} ms "
-        f"wall, busy {total / (wall * 1e3):.1%}; peak {peak / 1e9:.2f} GB")
     torch.cuda.empty_cache()
 
 
@@ -644,7 +770,7 @@ def _best(rows, what):
 
 def search_phases(dev, totals):
     """Phases 4-9 on `dev`; adds the launch counts of 5-9 to `totals` (not
-    those of the profiled call after phase 5)."""
+    those of the profiled calls after phases 5 and 7)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         prefix = os.path.join(tmp, "synth1m")
         build_bundle(prefix, dev)
@@ -664,6 +790,7 @@ def search_phases(dev, totals):
                         lambda: run_search(prefix, dev, "exactdistance", EXACT_L_SWEEP),
                         totals)
         best_e = _best(exact, "exactdistance fused")
+        profile_search(prefix, dev, "exactdistance", EXACT_PROFILE_L)
         exact_sc = counted("search exactdistance scattered", set(),
                            lambda: run_search(prefix, dev, "exactdistance",
                                               (best_e["L"],), fused_frontier=False),
@@ -703,6 +830,7 @@ def main():
 
     phase_build()
     kern = phase_kernels(dev)
+    phase_mask(dev)
     t0 = time.perf_counter()
     phase_probes(dev, kern)
     totals = dict.fromkeys(KERNEL_SOURCES, 0)

@@ -115,8 +115,19 @@ def test_plain_matches_pallas_interpret(beam):
 def test_plain_matches_jax_xla_path(integer):
     """Against the JAX XLA path (gather + decode_exact_frontier_rows +
     l2_distance_to_candidates) at R=24, D=20, beam 3."""
-    rng = np.random.default_rng(20 + integer)
-    n, r, d, q, beam = 5000, 24, 20, 12, 3
+    _against_jax_xla_path(np.random.default_rng(20 + integer), integer, 24, 20, 3)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("r,d,beam", [(20, 13, 3), (15, 9, 2)])
+def test_plain_matches_jax_xla_path_at_unaligned_rows(integer, r, d, beam):
+    """As above at the row widths of the kernel's 4-byte (R=20, D=13: 420 B)
+    and byte (R=15, D=9: 255 B) row copies."""
+    _against_jax_xla_path(np.random.default_rng(30 + d + integer), integer, r, d, beam)
+
+
+def _against_jax_xla_path(rng, integer, r, d, beam):
+    n, q = 5000, 12
     vectors, norms, adj = _table(rng, n, r, d)
     queries = _queries(rng, q, d, integer)
     parents = rng.integers(0, n, size=(q, beam), dtype=np.int32)
@@ -168,6 +179,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                           torch.zeros((1, 1), dtype=torch.int32))
     with pytest.raises(TypeError):
         ek.exact_frontier(queries.numpy(), rows, parents)
+
+
+def test_wrapper_takes_a_beam_whose_rows_exceed_shared_memory():
+    """Only the query and one parent row must fit a block's shared memory:
+    the kernel takes a wide beam's parents in groups. Here 16 rows of
+    R=64, D=240 (15,872 B each, 254 KB) exceed it."""
+    rng = np.random.default_rng(2)
+    r, d, beam = 64, 240, 16
+    assert beam * r * (8 + d) + 4 * d > _build.MAX_SHARED_BYTES
+    vectors, norms, adj = _table(rng, 100, r, d)
+    queries = torch.from_numpy(_queries(rng, 3, d, integer=True))
+    parents = torch.from_numpy(rng.integers(0, 100, size=(3, beam), dtype=np.int32))
+    ids, dists = ek.exact_frontier(queries, _torch_rows(adj, vectors, norms), parents)
+    np.testing.assert_array_equal(ids.numpy(), adj[parents.numpy()].reshape(3, beam * r))
+    assert dists.shape == (3, beam * r) and torch.isfinite(dists).all()
 
 
 def test_build_knows_the_exact_kernel():

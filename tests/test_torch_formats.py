@@ -178,7 +178,8 @@ def test_search_params_fields_and_defaults_match_jax():
 
 @pytest.mark.parametrize("name", [
     "MAX_R", "MAX_L", "DEFAULT_EXTRA_ITERS", "PQ_NUM_CENTERS", "ENUM_DIST_L2",
-    "ENUM_DIST_MIPS", "INVALID_ID", "DTYPE_CODE_TO_NUMPY", "NUMPY_TO_DTYPE_CODE"])
+    "ENUM_DIST_MIPS", "INVALID_ID", "DTYPE_CODE_TO_NUMPY", "NUMPY_TO_DTYPE_CODE",
+    "ENABLE_GPU_STATS", "ENABLE_CACHE_WARMUP"])
 def test_constants_match_jax(name):
     assert getattr(tconst, name) == getattr(jconst, name)
 

@@ -86,17 +86,56 @@ def _ids(rng, shape, hi=50):
     return rng.integers(0, hi, size=shape).astype(np.int32)
 
 
-def test_exact_new_mask_bit_identical():
-    rng = np.random.default_rng(4)
-    cand = _ids(rng, (16, 24))
-    wl = _ids(rng, (16, 20))
-    wl[:, 15:] = INVALID
-    vis = _ids(rng, (16, 12))
-    vis[:, 6:] = INVALID
+@pytest.mark.parametrize("q,c,l,mi,case", [
+    (16, 24, 20, 12, "tails"),
+    (4, 128, 128, 140, "tails"),  # the fused in-memory search's L=128 shape
+    (8, 64, 100, 106, "tails"),  # the exact search's L=100 shape
+    (16, 24, 20, 12, "no worklist tail"),
+    (16, 24, 20, 12, "duplicates"),
+    (16, 24, 20, 12, "visited all invalid"),
+])
+def test_exact_new_mask_bit_identical(q, c, l, mi, case):
+    """The sorted mask against JAX's dense `exact_new_mask` and against the
+    port's `exact_new_mask_dense`, with INVALID_ID candidates among the
+    candidates and, unless the case says otherwise, INVALID_ID tails in the
+    worklist and the visited list."""
+    rng = np.random.default_rng(4 + c + l)
+    hi = 30 if case == "duplicates" else 2 * (l + mi)
+    cand = _ids(rng, (q, c), hi)
+    cand[rng.random((q, c)) < 0.1] = INVALID
+    wl = _ids(rng, (q, l), hi)
+    vis = _ids(rng, (q, mi), hi)
+    if case != "no worklist tail":
+        wl[:, 3 * l // 4 :] = INVALID
+    vis[:, mi // 2 :] = INVALID
+    if case == "visited all invalid":
+        vis[:] = INVALID
+    if case == "duplicates":
+        wl[:, 1] = wl[:, 0]
+        vis[:, 1] = vis[:, 0] = wl[:, 0]
+        assert (cand == wl[:, :1]).any()
     want = jvisited.exact_new_mask(jnp.asarray(cand), jnp.asarray(wl), jnp.asarray(vis))
-    got = tvisited.exact_new_mask(*map(torch.from_numpy, (cand, wl, vis)))
+    args = tuple(map(torch.from_numpy, (cand, wl, vis)))
+    got = tvisited.exact_new_mask(*args)
+    assert got.dtype == torch.bool and got.shape == (q, c)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(got, tvisited.exact_new_mask_dense(*args))
     assert 0 < got.sum() < got.numel()
+    assert not got[torch.from_numpy(cand == INVALID)].any()  # INVALID is never new
+
+
+@pytest.mark.parametrize("caps", [0, 1, 2, 3])
+def test_check_params_refuses_capabilities(caps):
+    """Every capabilities bit raises, naming what will serve it; 0 passes."""
+    from bang_tpu_torch.models.traversal import check_params
+    from bang_tpu_torch.utils.config import SearchParams
+
+    params = SearchParams(L=16, capabilities=caps)
+    if caps == 0:
+        check_params(params)
+        return
+    with pytest.raises(NotImplementedError, match="capabilities"):
+        check_params(params)
 
 
 @pytest.mark.parametrize("beam", [2, 4])
