@@ -1,6 +1,7 @@
 // Staging global memory into shared memory with cp.async, shared by the
 // kernels that copy each block's inputs in one commit group and then work
-// from shared memory only (frontier_lookup.cu, exact_frontier.cu).
+// from shared memory only (pq_lookup.cu, frontier_lookup.cu,
+// exact_frontier.cu).
 
 #pragma once
 
@@ -34,20 +35,41 @@ __device__ __forceinline__ void cp_async_wait_all() {
           : "memory");
 }
 
-// Copy `bytes` from src to shared dst with the whole block: 16-byte or
-// 4-byte cp.async, or plain byte copies (VEC = 1). src and dst must be
-// VEC-aligned and `bytes` a multiple of VEC.
+// Copy VEC bytes from src to shared dst: a 16-byte or 4-byte cp.async, or a
+// plain byte copy (VEC = 1).
+template <int VEC>
+__device__ __forceinline__ void copy_unit(uint8_t* dst, const uint8_t* src) {
+  if (VEC == 16) {
+    cp_async16(dst, src);
+  } else if (VEC == 4) {
+    cp_async4(dst, src);
+  } else {
+    *dst = *src;
+  }
+}
+
+// Copy `bytes` from src to shared dst with the whole block. src and dst must
+// be VEC-aligned and `bytes` a multiple of VEC.
 template <int VEC>
 __device__ __forceinline__ void copy_to_shared(uint8_t* dst, const uint8_t* src,
                                                int bytes) {
   for (int i = threadIdx.x; i < bytes / VEC; i += blockDim.x) {
-    if (VEC == 16) {
-      cp_async16(dst + i * 16, src + i * 16);
-    } else if (VEC == 4) {
-      cp_async4(dst + i * 4, src + i * 4);
-    } else {
-      dst[i] = src[i];
-    }
+    copy_unit<VEC>(dst + i * VEC, src + i * VEC);
+  }
+}
+
+// Copy `rows` rows of `row_bytes`, contiguous at src, to shared dst at a
+// stride of `ld` bytes, with the whole block. src, dst and ld must be
+// VEC-aligned and `row_bytes` a multiple of VEC.
+template <int VEC>
+__device__ __forceinline__ void copy_rows_to_shared(uint8_t* dst, int ld,
+                                                    const uint8_t* src, int rows,
+                                                    int row_bytes) {
+  const int per_row = row_bytes / VEC;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int j = i / per_row;
+    const int o = (i - j * per_row) * VEC;
+    copy_unit<VEC>(dst + j * ld + o, src + j * row_bytes + o);
   }
 }
 

@@ -28,6 +28,7 @@ from bang_tpu_torch.ops.exact_kernels import exact_frontier
 from bang_tpu_torch.ops.l2 import l2_distance_to_candidates
 from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_parents_beam
 from bang_tpu_torch.ops.pq import pack_tables, pq_distance_tables
+from bang_tpu_torch.ops.pq import pq_lookup as pq_lookup_f32
 from bang_tpu_torch.ops.pq_kernels import frontier_decode_plain, frontier_lookup, pq_lookup
 from bang_tpu_torch.ops.visited import exact_new_mask, first_occurrence_mask_blocks
 
@@ -251,33 +252,35 @@ def make_pq_distance_fn(queries_f32, codebook, codes, fused_rows=None):
     """Traversal distance: PQ table lookup (BANG_Base/Inmemory behavior).
     Tables are built once per batch.
 
-    Without fused rows, `distance_fn(cand_ids, parents)` gathers each
-    candidate's codes and runs K1 (`pq_lookup`) on f32 tables (K1's packed
-    form, K4, is not on a search path yet). With fused_rows [N, R*(4+m)] u8
-    it carries `frontier_fn(parents)` instead, which yields ids and
+    `distance_fn(cand_ids, parents)` gathers each candidate's codes (the
+    scattered layout; the gather stays in torch, as the JAX package's
+    `fetch_codes`) and sums their table entries. With fused_rows [N,
+    R*(4+m)] u8 it also carries `frontier_fn(parents)`, which yields ids and
     distances from the ungathered rows, and the degree `r`. The device
-    picks the fused route, as the JAX package's `impl="auto"` does: on a
+    picks the table form, as the JAX package's `impl="auto"` does: on a
     CUDA device the tables are packed once per batch (`pack_tables`, bf16
-    pairs) and K2 (`frontier_lookup`) reads them, the f32 tables dropped; on
-    the CPU `frontier_decode_plain` reads the f32 tables (JAX's
-    `frontier_decode_xla`, what the JAX package runs there). `seed_fn` gives
-    the shared entry node's distance directly from its reconstructed
+    pairs) and the f32 tables dropped; K1 (`pq_lookup`) reads them for the
+    scattered codes and K2 (`frontier_lookup`) for the fused rows, the two
+    summing the same entries in the same order. On the CPU the f32 tables
+    are read: ops/pq.pq_lookup and `frontier_decode_plain` (JAX's
+    `frontier_decode_xla`), what the JAX package runs there. `seed_fn`
+    gives the shared entry node's distance directly from its reconstructed
     vector."""
     m = codebook.num_chunks
     tables = pq_distance_tables(codebook, queries_f32)
-    if fused_rows is not None and queries_f32.device.type == "cuda":
+    if queries_f32.device.type == "cuda":
         packed = pack_tables(tables)
-        del tables  # nothing on this route reads the f32 tables
+        del tables  # nothing on the card reads the f32 tables
 
         def distance_fn(cand_ids, parents=None):
-            raise RuntimeError("the fused route yields distances through frontier_fn")
+            return pq_lookup(packed, codes[cand_ids.long()])  # [Q, C, m] gather
 
         def frontier_fn(parents):
             return frontier_lookup(packed, fused_rows, parents)
     else:
 
         def distance_fn(cand_ids, parents=None):
-            return pq_lookup(tables, codes[cand_ids.long()])  # [Q, C, m] gather
+            return pq_lookup_f32(tables, codes[cand_ids.long()])
 
         def frontier_fn(parents):
             return frontier_decode_plain(tables, fused_rows, parents)

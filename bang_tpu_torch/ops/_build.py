@@ -46,7 +46,6 @@ SIGNATURES = {
     "pq_lookup": (_P, _P, _P, _I, _I, _I, _P),
     "frontier_lookup": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P),
     "exact_frontier": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P),
-    "lookup_packed": (_P, _P, _P, _I, _I, _I, _P),
     "frontier_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "row_gather": (_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _P),
 }
@@ -55,6 +54,10 @@ SIGNATURES = {
 MAX_SHARED_BYTES = 232_448
 # Kernels over bf16-pair tables stage one query's m x 128 int32 table there.
 MAX_PACKED_CHUNKS = MAX_SHARED_BYTES // (128 * 4)  # 454
+# K1 (csrc/pq_lookup.cu) stages that table and at least one m-byte code row,
+# padded to an odd number of 16-byte units: 464 bytes fit beside the table
+# at m=453, while at m=454 the table alone fills shared memory.
+MAX_LOOKUP_CHUNKS = MAX_PACKED_CHUNKS - 1  # 453
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict[str, dict] = {}  # name -> {"seconds", "cached", "log"}

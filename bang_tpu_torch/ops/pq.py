@@ -6,8 +6,11 @@ float32 matmul over all queries, via the norm expansion on zero-padded
 per-chunk layouts) and the PQ path of `compute_neighborDist_par`
 (:1201-1241; here `pq_lookup`, a flat per-query gather summed over chunks).
 
-`pq_lookup` is the plain PyTorch version of both CUDA kernels in
-`ops/pq_kernels.py` and the oracle the tests hold them against.
+`pq_lookup` over f32 tables is the CPU's in-memory lookup (the JAX
+package's `impl="auto"` route there); over `unpack_tables(packed)` it is
+the plain version of the CUDA kernels that read bf16-pair tables
+(`ops/pq_kernels.py`, `ops/probe_kernels.py`) and the oracle the tests hold
+them against.
 """
 
 from __future__ import annotations
@@ -93,7 +96,7 @@ def pq_distance_tables(codebook: PQCodebook, queries: torch.Tensor) -> torch.Ten
 def pack_tables(tables: torch.Tensor) -> torch.Tensor:
     """[Q, m, 256] f32 distance tables -> [Q, m, 128] int32 bf16 pairs, the
     table form of the JAX package's Pallas kernels (`pq_pallas.pack_tables`)
-    and of kernels K4 and K5 (ops/probe_kernels.py).
+    and of kernels K1, K2 and K5 (ops/pq_kernels.py, ops/probe_kernels.py).
 
     f32 -> bf16 rounds to nearest even; word i of a row holds entry 2i in
     its low half-word and entry 2i + 1 in its high one. Built by viewing the

@@ -1,32 +1,33 @@
 """The two Hopper kernels of the in-memory search, with their plain versions.
 
 Port of bang_tpu/ops/pq_pallas.py. Kernels (CUDA C++ for sm_90a under
-`csrc/`, built by `ops/_build.py`):
+`csrc/`, built by `ops/_build.py`), both over the JAX kernels' bf16-pair
+tables (`pack_tables`; ops/pq.py, bit-identical to JAX's):
 
   K1 `pq_lookup`        replaces `pq_lookup_packed` — PQ lookup over codes
-                        gathered per candidate (scattered-codes layout),
-                        over f32 tables.
+                        gathered per candidate (scattered-codes layout). The
+                        probes' `lookup_packed` (ops/probe_kernels.py)
+                        launches the same kernel (`run_lookup`).
   K2 `frontier_lookup`  replaces `frontier_lookup` and `frontier_lookup_dma`
                         — candidate ids and PQ distances read straight from
                         the ungathered fused rows of each query's parents
-                        (fused-row layout, the default), over the JAX
-                        kernels' bf16-pair tables.
+                        (fused-row layout, the default).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
-its kernel does not take. For tensors on the CPU it returns its plain
-version (`pq_lookup_plain`, `frontier_lookup_plain`); for CUDA tensors it
-launches the kernel or raises — there is no fallback. `<wrapper>.launches`
-counts kernel launches, so a run can show that its main path went through
-the kernels; `reset_launch_counts` zeroes all of them: K3 `exact_frontier`
-(ops/exact_kernels.py) and K4-K6 (ops/probe_kernels.py) included.
+its kernel does not take (f32 tables included). For tensors on the CPU it
+returns its plain version (`lookup_packed_plain`, `frontier_lookup_plain`);
+for CUDA tensors it launches the kernel or raises — there is no fallback.
+`<wrapper>.launches` counts kernel launches, so a run can show that its main
+path went through the kernels; `reset_launch_counts` zeroes all of them: K3
+`exact_frontier` (ops/exact_kernels.py) and K5-K6 and `lookup_packed`
+(ops/probe_kernels.py) included.
 
-Table forms: K2 reads the bf16-pair tables the JAX package's fused route
-reads on its accelerator (`pack_tables`; ops/pq.py, bit-identical to
-JAX's), so its sums are the bf16 entries' and equal K6 + K5's bit for bit.
-K1 still streams f32 tables; its packed form, K4, is measured but not on a
-search path. `frontier_decode_plain` is the fused route's f32 decode, JAX's
-`frontier_decode_xla`: the route the CPU takes, as under JAX's
-`impl="auto"`.
+Both kernels sum the m bf16 entries of a candidate in f32, in chunk order,
+so on the same codes they agree with each other and with K5 bit for bit.
+On the card both in-memory routes read packed tables; on the CPU both read
+the f32 tables, as under JAX's `impl="auto"`: `frontier_decode_plain` (JAX's
+`frontier_decode_xla`) for the fused rows, ops/pq.pq_lookup for the
+scattered codes (models/traversal.make_pq_distance_fn).
 """
 
 from __future__ import annotations
@@ -44,17 +45,16 @@ from bang_tpu_torch.ops._build import (
 from bang_tpu_torch.ops.adjacency import decode_adj_planes, pack_adj_planes
 from bang_tpu_torch.ops.exact_kernels import exact_frontier
 from bang_tpu_torch.ops.pq import pack_tables, unpack_tables  # noqa: F401
-from bang_tpu_torch.ops.pq import pq_lookup as pq_lookup_plain
+from bang_tpu_torch.ops.pq import pq_lookup as pq_lookup_f32
 from bang_tpu_torch.ops.probe_kernels import (
     frontier_packed,
     frontier_packed_plain,
     lookup_packed,
+    lookup_packed_plain,
     row_gather,
+    run_lookup,
 )
 
-# K1 stages one query's m x 256 f32 table in shared memory (MAX_SHARED_BYTES
-# at most).
-MAX_CHUNKS = MAX_SHARED_BYTES // (256 * 4)  # 227
 MAX_BEAM = 16  # SearchParams.beam_width's bound
 
 
@@ -98,7 +98,7 @@ def frontier_lookup_plain(packed, fused_rows, parents):
 def frontier_decode_plain(tables, fused_rows, parents):
     """The fused-row decode over f32 tables (the counterpart of the JAX
     `frontier_decode_xla`): row gather + byte-plane decode +
-    pq_lookup_plain. The fused route on the CPU; no kernel sits behind it.
+    ops/pq.pq_lookup. The fused route on the CPU; no kernel sits behind it.
 
     tables [Q, m, 256] f32; fused_rows [N, R*(4+m)] u8; parents [Q, beam]
     int32 in [0, N). Returns (ids [Q, beam*R] i32, dists [Q, beam*R] f32)."""
@@ -109,50 +109,18 @@ def frontier_decode_plain(tables, fused_rows, parents):
     ids = decode_adj_planes(rows[..., : 4 * r]).reshape(q, beam * r)
     cd = rows[..., 4 * r :].reshape(q, beam, m, r)
     codes = cd.transpose(2, 3).reshape(q, beam * r, m)  # [Q, C, m]
-    return ids, pq_lookup_plain(tables, codes)
+    return ids, pq_lookup_f32(tables, codes)
 
 
-def _check_tables(tables):
-    check_tensor("tables", tables, torch.float32, 3)
-    q, m, nc = tables.shape
-    if nc != 256:
-        raise ValueError(f"tables must be [Q, m, 256], got {tuple(tables.shape)}")
-    if not 1 <= m <= MAX_CHUNKS:
-        raise ValueError(
-            f"m={m} chunks: the kernel stages an m x 256 f32 table in shared "
-            f"memory and takes 1 <= m <= {MAX_CHUNKS}"
-        )
-    return q, m
+def pq_lookup(packed: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """K1: out[q, j] = sum_c bf16(T)[q, c, codes[q, j, c]], the f32 sum of
+    the m bf16 entries added in chunk order (K2's and K5's order).
 
-
-def pq_lookup(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """K1: out[q, j] = sum_c tables[q, c, codes[q, j, c]].
-
-    tables: [Q, m, 256] f32; codes: [Q, C, m] u8 (gathered per candidate);
-    both contiguous, on one device. Returns [Q, C] f32."""
-    q, m = _check_tables(tables)
-    check_tensor("codes", codes, torch.uint8, 3)
-    if codes.shape[0] != q or codes.shape[2] != m:
-        raise ValueError(
-            f"codes {tuple(codes.shape)} do not match tables {tuple(tables.shape)}"
-        )
-    if route(tables, codes) == "cpu":
-        return pq_lookup_plain(tables, codes)
-    from bang_tpu_torch.ops import _build
-
-    c = codes.shape[1]
-    out = torch.empty((q, c), dtype=torch.float32, device=tables.device)
-    if q == 0 or c == 0:
-        return out
-    lib = _build.load_library("pq_lookup")
-    with torch.cuda.device(tables.device):
-        err = lib.pq_lookup_launch(
-            tables.data_ptr(), codes.data_ptr(), out.data_ptr(), q, c, m,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check_launch("pq_lookup", err)
-    pq_lookup.launches += 1
-    return out
+    packed: [Q, m, 128] int32 (pack_tables), on a 16-byte boundary; codes:
+    [Q, C, m] u8 (gathered per candidate); both contiguous, on one device;
+    m <= 453. Returns [Q, C] f32. f32 tables raise. The checks and the
+    launch are probe_kernels.run_lookup's, shared with `lookup_packed`."""
+    return run_lookup(pq_lookup, packed, codes)
 
 
 pq_lookup.launches = 0
@@ -213,7 +181,7 @@ def frontier_lookup(packed: torch.Tensor, fused_rows: torch.Tensor,
 frontier_lookup.launches = 0
 
 # every kernel wrapper of the port: K1-K2 here, K3 (ops/exact_kernels),
-# K4-K6 (ops/probe_kernels)
+# lookup_packed (K1's kernel) and K5-K6 (ops/probe_kernels)
 KERNELS = (pq_lookup, frontier_lookup, exact_frontier, lookup_packed,
            frontier_packed, row_gather)
 

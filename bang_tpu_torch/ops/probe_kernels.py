@@ -1,5 +1,6 @@
-"""Kernels K4-K6, the counterparts of the Pallas layout probes in the JAX
-package's `scripts/`, with their plain versions.
+"""The counterparts of the Pallas layout probes in the JAX package's
+`scripts/`, with their plain versions: `lookup_packed` (K1's kernel) and
+kernels K5-K6.
 
 The six probes computed PQ lookups over bf16-pair tables (`pack_tables`,
 ops/pq.py) in the code layouts K1 and K2 took or rejected on the TPU, and a
@@ -7,11 +8,16 @@ bare dynamic row copy. On the card the layouts that differed only in how
 Mosaic moved bytes into vector registers are one function, so three CUDA
 kernels (sm_90a, under `csrc/`, built by `ops/_build.py`) serve all six:
 
-  K4 `lookup_packed`    replaces `lookup_v2` (scripts/exp_lookup.py:85),
+  `lookup_packed`       replaces `lookup_v2` (scripts/exp_lookup.py:85),
                         `lookup_flat` (scripts/exp_flat_lookup.py:90) and
                         `v6` (scripts/exp_flat2.py:106): out[q, j] =
                         sum_c bf16(T)[q, c, codes[q, j, c]] over codes
                         [Q, C, m] (a flat [Q, C*m] buffer is the same bytes).
+                        The in-memory search's scattered route computes the
+                        same function, so this wrapper launches K1
+                        (csrc/pq_lookup.cu) through `run_lookup`, which
+                        ops/pq_kernels.pq_lookup shares, and counts its own
+                        launches.
   K5 `frontier_packed`  replaces `fused_lookup` (scripts/exp_fused.py:79,
                         id_planes=4) and `v7` (scripts/exp_flat2.py:148,
                         id_planes=0): ids and PQ distances from gathered
@@ -25,8 +31,8 @@ Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it returns its plain
 version; for CUDA tensors it launches the kernel or raises — there is no
 fallback. `<wrapper>.launches` counts launches (zeroed with the others by
-`pq_kernels.reset_launch_counts`). The search path calls none of them;
-`bang_tpu_torch/scripts/` drives them at the probes' own sizes.
+`pq_kernels.reset_launch_counts`). The search path calls none of these
+wrappers; `bang_tpu_torch/scripts/` drives them at the probes' own sizes.
 """
 
 from __future__ import annotations
@@ -34,7 +40,13 @@ from __future__ import annotations
 import torch
 
 from bang_tpu_torch.constants import MAX_R
-from bang_tpu_torch.ops._build import check_aligned, check_packed, check_tensor, route
+from bang_tpu_torch.ops._build import (
+    MAX_LOOKUP_CHUNKS,
+    check_aligned,
+    check_packed,
+    check_tensor,
+    route,
+)
 from bang_tpu_torch.ops.adjacency import decode_adj_planes
 from bang_tpu_torch.ops.pq import pq_lookup, unpack_tables
 
@@ -43,40 +55,62 @@ ID_PLANES = (0, 4)
 
 
 def lookup_packed_plain(packed, codes):
-    """Plain version of K4: unpack to f32, then the gather-sum of
-    ops/pq.pq_lookup. packed [Q, m, 128] int32; codes [Q, C, m] u8."""
+    """Plain version of K1 (and so of `lookup_packed`): unpack to f32, then
+    the gather-sum of ops/pq.pq_lookup. packed [Q, m, 128] int32; codes
+    [Q, C, m] u8."""
     return pq_lookup(unpack_tables(packed), codes)
 
 
-def lookup_packed(packed: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """K4: out[q, j] = sum_c bf16(T)[q, c, codes[q, j, c]], summed in f32.
-
-    packed: [Q, m, 128] int32 (pack_tables); codes: [Q, C, m] u8; both
-    contiguous, on one device. Returns [Q, C] f32."""
+def check_lookup(packed, codes) -> None:
+    """Raise unless (packed, codes) is what K1 takes."""
     q, m = check_packed(packed)
+    check_aligned(packed)
     check_tensor("codes", codes, torch.uint8, 3)
     if codes.shape[0] != q or codes.shape[2] != m:
         raise ValueError(
             f"codes {tuple(codes.shape)} do not match packed {tuple(packed.shape)}"
         )
+    if m > MAX_LOOKUP_CHUNKS:
+        raise ValueError(
+            f"m={m}: the kernel stages the m x 128 int32 table and at least one "
+            f"code row in shared memory, so it takes m <= {MAX_LOOKUP_CHUNKS}"
+        )
+
+
+def run_lookup(wrapper, packed, codes) -> torch.Tensor:
+    """K1 on (packed, codes) for `wrapper`, one of the two wrappers that
+    compute its function (ops/pq_kernels.pq_lookup, `lookup_packed`): the
+    checks, the plain version for CPU tensors, else the kernel, counted on
+    `wrapper.launches` where it launches. Here, below both wrappers, because
+    ops/pq_kernels imports this module."""
+    check_lookup(packed, codes)
     if route(packed, codes) == "cpu":
         return lookup_packed_plain(packed, codes)
-    check_aligned(packed)
     from bang_tpu_torch.ops import _build
 
-    c = codes.shape[1]
+    q, c, m = codes.shape
     out = torch.empty((q, c), dtype=torch.float32, device=packed.device)
     if q == 0 or c == 0:
         return out
-    lib = _build.load_library("lookup_packed")
+    lib = _build.load_library("pq_lookup")
     with torch.cuda.device(packed.device):
-        err = lib.lookup_packed_launch(
+        err = lib.pq_lookup_launch(
             packed.data_ptr(), codes.data_ptr(), out.data_ptr(), q, c, m,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check_launch("lookup_packed", err)
-    lookup_packed.launches += 1
+    _build.check_launch("pq_lookup", err)
+    wrapper.launches += 1
     return out
+
+
+def lookup_packed(packed: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """out[q, j] = sum_c bf16(T)[q, c, codes[q, j, c]], summed in f32 in
+    chunk order: K1 (ops/pq_kernels.pq_lookup) under the probes' name, with
+    K1's checks and its own launch count.
+
+    packed: [Q, m, 128] int32 (pack_tables); codes: [Q, C, m] u8; both
+    contiguous, on one device. Returns [Q, C] f32."""
+    return run_lookup(lookup_packed, packed, codes)
 
 
 lookup_packed.launches = 0

@@ -1,13 +1,14 @@
 """Counterparts of the JAX package's Pallas layout probes in `scripts/`.
 
 Each module has the name of its JAX script and defines that script's TPU
-kernels under their own names, as wrappers over the port's kernels K4-K6
-(ops/probe_kernels.py), K1-K2 (ops/pq_kernels.py) and K3
-(ops/exact_kernels.py):
+kernels under their own names, as wrappers over the port's kernels:
+`lookup_packed` (K1's kernel) and K5-K6 (ops/probe_kernels.py), K1-K2
+(ops/pq_kernels.py) and K3 (ops/exact_kernels.py):
 
-  exp_lookup        lookup_v2 (K4), beside K1; the aligned-row gather study (K6)
-  exp_flat_lookup   lookup_flat (K4) on rows gathered by K6
-  exp_flat2         v6 (K4) and v7 (K5 without id planes)
+  exp_lookup        lookup_v2 (K1) beside v1, K1 itself; the aligned-row
+                    gather study (K6)
+  exp_flat_lookup   lookup_flat (K1) on rows gathered by K6
+  exp_flat2         v6 (K1) and v7 (K5 without id planes)
   exp_fused         fused_lookup (K5 with id planes)
   exp_dma_tiled     sublane_probe (K6); K2 against K6 + K5; K3
 

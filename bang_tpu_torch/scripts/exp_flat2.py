@@ -5,8 +5,8 @@ The JAX script asked which in-kernel restructure of flat codes Mosaic
 supports and what each costs. On the card none is needed; the variants keep
 their names and run on rows that K6 `row_gather` fetches:
 
-  V5  the flat rows viewed as [Q, C, m], then K4 `lookup_packed`;
-  V6  `v6` = K4 over the flat [Q, C*m] rows (the same bytes as V5);
+  V5  the flat rows viewed as [Q, C, m], then `lookup_packed` (K1);
+  V6  `v6` = K1 over the flat [Q, C*m] rows (the same bytes as V5);
   V7  `v7` = K5 `frontier_packed` without id planes over chunk-major rows
       [Q, beam, m*R] (each node's codes transposed to chunk-major).
 
@@ -34,7 +34,7 @@ TAG = "exp_flat2"
 
 
 def v6(packed_tables, flat_codes):
-    """The probe `v6`: K4 over flat codes [Q, C*m]."""
+    """The probe `v6`: K1 (`lookup_packed`) over flat codes [Q, C*m]."""
     q, m, _ = packed_tables.shape
     return lookup_packed(packed_tables, flat_codes.view(q, -1, m))
 
@@ -68,8 +68,8 @@ def main(device="cuda", n=N, r=R, m=M, q=Q, beam=BEAM, iters=cm.ITERS,
     def v7_call(i):
         return v7(packed, row_gather(codes_cm, pars[i]).view(q, beam, m * r))
 
-    for name, fn in (("V5: K6 flat gather + view + lookup_packed (K4)", v5_call),
-                     ("V6: K6 flat gather + v6 (K4)", v6_call),
+    for name, fn in (("V5: K6 flat gather + view + lookup_packed (K1)", v5_call),
+                     ("V6: K6 flat gather + v6 (K1)", v6_call),
                      ("V7: K6 chunk-major gather + v7 (K5, no ids)", v7_call)):
         err = cm.dist_err(name, fn(0), want)
         cm.report(res, TAG, name, cm.time_ms(fn, dev, iters), err)

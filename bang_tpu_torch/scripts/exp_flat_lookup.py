@@ -7,7 +7,7 @@ and what a gather costs by itself. On the card [N, R, m] and [N, R*m] are
 the same bytes, so its variants A and B are one pipeline here:
 
   A/B  K6 `row_gather` of each query's beam parents' rows, then
-       `lookup_flat` = K4 `lookup_packed` over the flat [Q, C*m] codes;
+       `lookup_flat` = `lookup_packed` (K1) over the flat [Q, C*m] codes;
   B2   the gather alone;
   C    a 1,000-row gather and C2 the same 1,000 rows 20 times (the fixed
        cost of a gather against its rows).
@@ -36,7 +36,8 @@ TAG = "exp_flat_lookup"
 
 
 def lookup_flat(packed_tables, flat_codes, m):
-    """The probe `lookup_flat`: K4 over flat codes [Q, C*m]."""
+    """The probe `lookup_flat`: K1 (`lookup_packed`) over flat codes
+    [Q, C*m]."""
     q = packed_tables.shape[0]
     return lookup_packed(packed_tables, flat_codes.view(q, -1, m))
 
@@ -56,7 +57,7 @@ def main(device="cuda", n=N, r=R, m=M, q=Q, beam=BEAM, small=SMALL,
     want = lookup_packed_plain(
         packed, row_gather_plain(codes_flat, pars[0]).view(q, beam * r, m))
     err = cm.dist_err("lookup_flat", lookup_flat(packed, gathered(0), m), want)
-    cm.report(res, TAG, "A/B: K6 flat gather + lookup_flat (K4)",
+    cm.report(res, TAG, "A/B: K6 flat gather + lookup_flat (K1)",
               cm.time_ms(lambda i: lookup_flat(packed, gathered(i), m), dev, iters),
               err)
     err = cm.same("flat gather", gathered(0).view(q * beam, -1),

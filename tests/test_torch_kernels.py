@@ -3,13 +3,15 @@
 Here the wrappers take their plain versions (the tensors lie on the CPU);
 the CUDA kernels themselves are compared with the same plain versions on
 the card by chip_smoke.py. Held against the JAX package:
-  * K1 `pq_lookup` (plain) and the fused route's f32 decode
-    `frontier_decode_plain` against JAX `pq_lookup` and
-    `frontier_decode_xla`: f32 tables both sides, rtol 1e-5 plus atol 1e-5
-    x the row's magnitude (summation order only);
-  * K1 against the Pallas `pq_lookup_packed` in interpret mode: rtol 2e-2,
-    atol 2e-2 x m — the Pallas kernel reads bf16 tables (~0.4% per entry),
-    K1 f32 ones;
+  * the CPU's in-memory routes, ops/pq.pq_lookup on the scattered codes and
+    the f32 decode `frontier_decode_plain` on the fused rows, against JAX
+    `pq_lookup` and `frontier_decode_xla`: f32 tables both sides, rtol 1e-5
+    plus atol 1e-5 x the row's magnitude (summation order only);
+  * K1 `pq_lookup` (plain) on the port's `pack_tables` against the Pallas
+    `pq_lookup_packed` in interpret mode on JAX's packing, C=256 (the
+    Pallas kernel's 128-lane slices) included: the same bf16 entries, only
+    the order of the f32 sum differs, so rtol 1e-5 plus atol 1e-5 x the
+    row's largest;
   * K2 `frontier_lookup` (plain) against the Pallas `frontier_lookup` and
     `frontier_lookup_dma` in interpret mode, both over the same bf16-pair
     tables (the port's `pack_tables` words equal JAX's): ids bit-exact,
@@ -31,6 +33,7 @@ from bang_tpu.ops import pq as jpq
 from bang_tpu.ops import pq_pallas as jpp
 from bang_tpu_torch.ops import _build
 from bang_tpu_torch.ops import pq_kernels as k
+from bang_tpu_torch.ops.pq import pq_lookup as pq_lookup_f32
 from bang_tpu_torch.ops.probe_kernels import frontier_packed_plain
 
 
@@ -83,11 +86,13 @@ def _numpy_bf16_sums(tables, rows, parents, r, m):
 
 
 def test_k1_plain_matches_jax_lookup():
+    """The CPU's scattered route: ops/pq.pq_lookup on f32 tables, as JAX's
+    `pq_lookup` there."""
     rng = np.random.default_rng(0)
     tables = _tables(rng, 12, 16)
     codes = rng.integers(0, 256, size=(12, 96, 16), dtype=np.uint8)
     want = np.asarray(jpq.pq_lookup(jnp.asarray(tables), jnp.asarray(codes)))
-    got = k.pq_lookup(torch.from_numpy(tables), torch.from_numpy(codes))
+    got = pq_lookup_f32(torch.from_numpy(tables), torch.from_numpy(codes))
     _close(got, want, 1e-5, 1e-5 * np.abs(want).max(-1, keepdims=True))
 
 
@@ -105,16 +110,21 @@ def test_k2_plain_matches_jax_decode(r, m, beam):
     _close(got_d, want_d, 1e-5, 1e-5 * np.abs(want_d).max(-1, keepdims=True))
 
 
-@pytest.mark.parametrize("r,m", [(64, 16), (32, 8)])
-def test_k1_plain_matches_pallas_interpret(r, m):
-    rng = np.random.default_rng(10 + r)
+@pytest.mark.parametrize("r,m,beam", [pytest.param(64, 16, 2, id="64-16"),
+                                       pytest.param(32, 8, 2, id="32-8"),
+                                       pytest.param(64, 16, 4, id="64-16-C256")])
+def test_k1_plain_matches_pallas_interpret(r, m, beam):
+    """K1 on the port's packing against the Pallas kernel on JAX's, C =
+    beam * R candidates; C=256 takes the Pallas kernel's 128-lane slices."""
+    rng = np.random.default_rng(10 + r + beam)
     tables = _tables(rng, 16, m)
-    codes = rng.integers(0, 256, size=(16, 2 * r, m), dtype=np.uint8)
-    want = jpp.pq_lookup_packed(
-        jpp.pack_tables(jnp.asarray(tables)), jnp.asarray(codes), interpret=True
-    )
-    got = k.pq_lookup(torch.from_numpy(tables), torch.from_numpy(codes))
-    _close(got, want, 2e-2, 2e-2 * m)
+    codes = rng.integers(0, 256, size=(16, beam * r, m), dtype=np.uint8)
+    packed_j = jpp.pack_tables(jnp.asarray(tables))
+    packed = k.pack_tables(torch.from_numpy(tables))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(packed_j))
+    want = np.asarray(jpp.pq_lookup_packed(packed_j, jnp.asarray(codes), interpret=True))
+    got = k.pq_lookup(packed, torch.from_numpy(codes))
+    _close(got, want, 1e-5, 1e-5 * np.abs(want).max(-1, keepdims=True))
 
 
 @pytest.mark.parametrize("r,m,beam", [(64, 16, 2), (32, 8, 4)])
@@ -206,22 +216,31 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     p_ids, p_d = k.frontier_lookup_plain(packed, rt, pt)
     assert torch.equal(ids, p_ids) and torch.equal(d, p_d)
     codes = torch.from_numpy(rng.integers(0, 256, size=(4, 16, 4), dtype=np.uint8))
-    assert torch.equal(k.pq_lookup(tt, codes), k.pq_lookup_plain(tt, codes))
+    assert torch.equal(k.pq_lookup(packed, codes), k.lookup_packed_plain(packed, codes))
     assert k.pq_lookup.launches == 0 and k.frontier_lookup.launches == 0
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    tables = torch.zeros((4, 8, 256))
+    packed = torch.zeros((4, 8, 128), dtype=torch.int32)
     codes = torch.zeros((4, 16, 8), dtype=torch.uint8)
     with pytest.raises(ValueError, match="uint8"):
-        k.pq_lookup(tables, codes.to(torch.int32))
+        k.pq_lookup(packed, codes.to(torch.int32))
     with pytest.raises(ValueError, match="contiguous"):
-        k.pq_lookup(tables.transpose(0, 1).contiguous().transpose(0, 1), codes)
+        k.pq_lookup(packed.transpose(0, 1).contiguous().transpose(0, 1), codes)
+    with pytest.raises(ValueError, match="contiguous"):
+        k.pq_lookup(packed, codes.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="do not match"):
-        k.pq_lookup(tables, codes[:, :, :4].contiguous())
-    with pytest.raises(ValueError, match="m=300"):
-        k.pq_lookup(torch.zeros((1, 300, 256)), torch.zeros((1, 2, 300), dtype=torch.uint8))
-    packed = torch.zeros((4, 8, 128), dtype=torch.int32)
+        k.pq_lookup(packed, codes[:, :, :4].contiguous())
+    with pytest.raises(ValueError, match="do not match"):
+        k.pq_lookup(packed, codes[:2].contiguous())
+    with pytest.raises(ValueError, match="128"):
+        k.pq_lookup(torch.zeros((4, 8, 256), dtype=torch.int32), codes)
+    with pytest.raises(ValueError, match="m=500"):
+        k.pq_lookup(torch.zeros((1, 500, 128), dtype=torch.int32),
+                    torch.zeros((1, 2, 500), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="16-byte"):
+        k.pq_lookup(torch.zeros(4 * 8 * 128 + 1, dtype=torch.int32)[1:].view(4, 8, 128),
+                    codes)
     rows = torch.zeros((10, 8 * 12), dtype=torch.uint8)
     parents = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
@@ -242,8 +261,64 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                           torch.zeros((1, 1), dtype=torch.int32))
 
 
+def test_k1_candidate_group_bound():
+    """K1 stages the table and at least one code row (m rounded up to an odd
+    number of 16-byte units): m=453 fits, so any C goes through in groups;
+    at m=454 the 227 KB table leaves no room for a row."""
+    assert _build.MAX_LOOKUP_CHUNKS == 453
+    assert 453 * 512 + 16 * 29 <= _build.MAX_SHARED_BYTES < 454 * 512 + 16
+    packed = torch.zeros((1, 453, 128), dtype=torch.int32)
+    codes = torch.zeros((1, 1024, 453), dtype=torch.uint8)
+    assert k.pq_lookup(packed, codes).shape == (1, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        k.pq_lookup(torch.zeros((1, 454, 128), dtype=torch.int32),
+                    torch.zeros((1, 2, 454), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("q,c", [(3, 0), (0, 5)])
+@pytest.mark.parametrize("name", ["pq_lookup", "lookup_packed"])
+def test_k1_counts_no_launch_for_an_empty_batch(monkeypatch, name, q, c):
+    """On the kernel's route an empty batch returns an empty [Q, C] result
+    before any launch, and its wrapper's count stays where it was."""
+    from bang_tpu_torch.ops import probe_kernels as prk
+
+    wrapper = getattr(k, name)
+    monkeypatch.setattr(prk, "route", lambda *t: "cuda")
+    monkeypatch.setattr(_build, "load_library", lambda n: pytest.fail("launched"))
+    k.reset_launch_counts()
+    out = wrapper(torch.zeros((q, 8, 128), dtype=torch.int32),
+                  torch.zeros((q, c, 8), dtype=torch.uint8))
+    assert out.shape == (q, c) and out.dtype == torch.float32
+    assert all(kern.launches == 0 for kern in k.KERNELS)
+
+
+def test_k1_refuses_f32_tables():
+    """The f32 [Q, m, 256] tables of the CPU's routes, passed to K1 by
+    mistake, raise instead of being read as words."""
+    with pytest.raises(ValueError, match="int32"):
+        k.pq_lookup(torch.zeros((4, 8, 256)), torch.zeros((4, 16, 8), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="int32"):
+        k.pq_lookup(torch.zeros((4, 8, 128)), torch.zeros((4, 16, 8), dtype=torch.uint8))
+
+
+def test_k1_sums_in_chunk_order_equal_to_k2():
+    """K1's plain version on the codes of gathered fused rows is K2's plain
+    version's distances bit for bit, and within tolerance of the numpy sum
+    of JAX's bf16 entries in chunk order."""
+    rng = np.random.default_rng(5)
+    r, m, beam = 24, 12, 4
+    tables, rows, parents, _ = _fused_case(rng, 9, 150, r, m, beam, 1 << 20)
+    _, want = _k2(tables, rows, parents)
+    codes = rows[parents][..., 4 * r :].reshape(9, beam, m, r).transpose(0, 1, 3, 2)
+    got = k.pq_lookup(k.pack_tables(torch.from_numpy(tables)),
+                      torch.from_numpy(np.ascontiguousarray(codes.reshape(9, beam * r, m))))
+    assert torch.equal(got, want)
+    ref = _numpy_bf16_sums(tables, rows, parents, r, m)
+    _close(got, ref, 1e-5, 1e-5 * np.abs(ref).max(-1, keepdims=True))
+
+
 def test_k2_refuses_f32_tables():
-    """The f32 [Q, m, 256] tables of K1 and of the f32 decode, passed to K2
+    """The f32 [Q, m, 256] tables of the CPU's routes, passed to K2
     by mistake, raise instead of being read as words."""
     tables = torch.zeros((4, 8, 256))
     rows = torch.zeros((10, 8 * 12), dtype=torch.uint8)

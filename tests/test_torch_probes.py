@@ -1,4 +1,5 @@
-"""K4-K6 (bang_tpu_torch.ops.probe_kernels) and the probe scripts
+"""The probe wrappers (bang_tpu_torch.ops.probe_kernels: `lookup_packed`,
+which launches K1, and K5-K6) and the probe scripts
 (bang_tpu_torch.scripts), on the CPU.
 
 Here the wrappers take their plain versions (the tensors lie on the CPU);
@@ -202,6 +203,22 @@ def test_row_gather_bit_exact_against_numpy(width):
     np.testing.assert_array_equal(probe.numpy().reshape(57, width), rows[par])
 
 
+def test_lookup_packed_is_k1_with_its_own_count():
+    """`lookup_packed` computes K1's function with K1's checks (the
+    shared-memory bound included) and counts apart from `pq_lookup`."""
+    rng = np.random.default_rng(3)
+    packed = _packed(_tables(rng, 6, 12))
+    codes = torch.from_numpy(_codes(rng, 6, 40, 12))
+    pk.reset_launch_counts()
+    assert torch.equal(prk.lookup_packed(packed, codes), pk.pq_lookup(packed, codes))
+    assert torch.equal(prk.lookup_packed(packed, codes),
+                       prk.lookup_packed_plain(packed, codes))
+    assert prk.lookup_packed.launches == 0 and pk.pq_lookup.launches == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        prk.lookup_packed(torch.zeros((1, 454, 128), dtype=torch.int32),
+                          torch.zeros((1, 2, 454), dtype=torch.uint8))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     packed = torch.zeros((4, 8, 128), dtype=torch.int32)
     codes = torch.zeros((4, 16, 8), dtype=torch.uint8)
@@ -233,10 +250,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_kernel_registry_covers_k1_to_k6():
+    """Six wrappers, five kernel sources: `lookup_packed` launches K1's."""
     names = [k.__name__ for k in pk.KERNELS]
     assert names == ["pq_lookup", "frontier_lookup", "exact_frontier",
                      "lookup_packed", "frontier_packed", "row_gather"]
-    assert set(names) == set(_build.SIGNATURES)
+    assert set(_build.SIGNATURES) == set(names) - {"lookup_packed"}
+    assert sorted(p.stem for p in _build.SRC_DIR.glob("*.cu")) == sorted(_build.SIGNATURES)
     for k in pk.KERNELS:
         k.launches = 3
     pk.reset_launch_counts()

@@ -9,11 +9,13 @@ terms of that size). The PQ distances that steer the
 walk are f32 sums in a different order, which can flip a near-tie; that
 is why ids are held per row at 99% and not bit-exact.
 
-The device picks the port's fused route, as JAX's pq_impl="auto" does:
-the f32 decode on the CPU (what the JAX comparison runs), K2 over bf16-pair
-tables on the card. K2's plain version, called here on the CPU in the f32
-decode's place, keeps recall@10 within 1.0 point of it (bf16 entries move
-PQ sums by ~0.2%).
+The device picks the port's table form, as JAX's pq_impl="auto" does:
+f32 tables on the CPU (what the JAX comparison runs), bf16-pair tables on
+the card, read by K2 on the fused rows and by K1 on the scattered codes.
+Walks steered as on the card, by K2's or K1's plain version called here on
+the CPU, keep recall@10 within 1.0 point of the f32 route (bf16 entries
+move PQ sums by ~0.2%), and the two layouts' walks are identical: K1 and
+K2 sum the same entries in the same order.
 """
 
 import numpy as np
@@ -105,31 +107,74 @@ def test_scattered_layout_matches_fused(fused64_index):
     assert a_st.iters == b_st.iters and a_st.n_dist_comps == b_st.n_dist_comps
 
 
-def test_bf16_fused_route_recall_matches_f32(tiny_index):
-    """The walk steered by K2 (its plain version, on CPU tensors) over the
-    packed tables, as on the card, in place of the CPU's f32 decode:
-    recall@10 within 1.0 point, the iteration count within 1."""
-    prefix, queries, gt_ids, gt_dists = _bundle(tiny_index)
-    index = device_index_from_files(prefix, "cpu")
-    assert index.fused_rows is not None
-    params = SearchParams(L=32, k=10, beam_width=2, extra_iters=12)
-    f32_ids, _, f32_stats = search_inmemory(index, queries, params)
-
+def _card_route_walk(index, queries, params):
+    """The walk the card takes, run on the CPU: packed tables, read by K2
+    on a fused index or by K1 on a scattered one, each through its plain
+    version (the wrappers on CPU tensors). Returns (final state, re-ranked
+    ids, re-ranked distances)."""
     q = torch.as_tensor(queries).float()
     fn = make_pq_distance_fn(q, index.codebook, index.codes, index.fused_rows)
     packed = pk.pack_tables(pq_distance_tables(index.codebook, q))
-    fn.frontier_fn = lambda parents: pk.frontier_lookup(packed, index.fused_rows, parents)
+    if index.fused_rows is not None:
+        fn.frontier_fn = lambda parents: pk.frontier_lookup(packed, index.fused_rows,
+                                                            parents)
+        walk_fn = fn
+    else:
+        def walk_fn(cand_ids, parents=None):
+            return pk.pq_lookup(packed, index.codes[cand_ids.long()])
+
+        walk_fn.seed_fn = fn.seed_fn
     entry_ids, entry_dists = entry_points(index, q, params)
-    final = run_traversal(index.adj, fn, index.medoid, q.shape[0], params.L,
+    final = run_traversal(index.adj, walk_fn, index.medoid, q.shape[0], params.L,
                           params.max_iters, params.beam_width, q.device,
                           entry_ids=entry_ids, entry_dists=entry_dists)
-    bf16_ids, _ = rerank_topk(q, index.vectors, final.visited_ids, params.k)
+    return (final, *rerank_topk(q, index.vectors, final.visited_ids, params.k))
+
+
+def _bf16_recall_matches_f32(tiny_index, fused_frontier):
+    """The walk steered by K2 (fused rows) or K1 (scattered codes) over the
+    packed tables, as on the card, in place of the CPU's f32 route:
+    recall@10 within 1.0 point, the iteration count within 1."""
+    prefix, queries, gt_ids, gt_dists = _bundle(tiny_index)
+    index = device_index_from_files(prefix, "cpu", fused_frontier=fused_frontier)
+    assert (index.fused_rows is not None) == fused_frontier
+    params = SearchParams(L=32, k=10, beam_width=2, extra_iters=12)
+    f32_ids, _, f32_stats = search_inmemory(index, queries, params)
+    final, bf16_ids, _ = _card_route_walk(index, queries, params)
 
     r_f32 = calculate_recall(gt_ids, f32_ids.numpy(), 10, gt_dists)
     r_bf16 = calculate_recall(gt_ids, bf16_ids.numpy(), 10, gt_dists)
     assert abs(r_bf16 - r_f32) <= 1.0, (r_bf16, r_f32)
     assert abs(final.it - f32_stats.iters) <= 1, (final.it, f32_stats.iters)
     assert r_bf16 > 80.0
+
+
+def test_bf16_fused_route_recall_matches_f32(tiny_index):
+    _bf16_recall_matches_f32(tiny_index, fused_frontier=True)
+
+
+def test_bf16_scattered_route_recall_matches_f32(tiny_index):
+    _bf16_recall_matches_f32(tiny_index, fused_frontier=False)
+
+
+@pytest.mark.parametrize("beam", [2, 4])
+def test_scattered_k1_walk_identical_to_fused_k2_walk(fused64_index, beam):
+    """On the card's tables the scattered walk (K1's plain version) and the
+    fused walk (K2's) sum the same bf16 entries in the same order over the
+    same candidates: worklists, visited lists, iterations and the re-ranked
+    ids and distances are identical (C = 128 and 256 at R=64)."""
+    prefix, queries, _, _ = _bundle(fused64_index)
+    params = SearchParams(L=24, k=10, beam_width=beam, extra_iters=12)
+    fused = device_index_from_files(prefix, "cpu")
+    scattered = device_index_from_files(prefix, "cpu", fused_frontier=False)
+    assert fused.adj is None and scattered.fused_rows is None
+    a, a_ids, a_d = _card_route_walk(fused, queries, params)
+    b, b_ids, b_d = _card_route_walk(scattered, queries, params)
+    assert a.it == b.it
+    for x, y in ((a.wl_ids, b.wl_ids), (a.wl_dist, b.wl_dist),
+                 (a.visited_ids, b.visited_ids), (a_ids, b_ids), (a_d, b_d)):
+        assert torch.equal(x, y)
+    assert int(a.n_dist_comps) == int(b.n_dist_comps)
 
 
 def test_cpu_fused_route_is_f32_decode_and_pq_impl_auto_only(fused64_index):
