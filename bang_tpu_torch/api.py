@@ -3,21 +3,23 @@
 The reference's 7-method lifecycle (BANG_Base/bang.h:53-82):
     bang_load -> bang_set_searchparams -> bang_alloc -> bang_init ->
     bang_query -> bang_free -> bang_unload
-with L2 / MIPS distance functions (bang.h:26-30). The "inmemory" and
-"exactdistance" variants are ported; "base" raises NotImplementedError
-naming its ROADMAP item.
+with L2 / MIPS distance functions (bang.h:26-30), over the three variants:
+"base" (host-RAM graph, PQ codes on the device; models/base.py),
+"inmemory" and "exactdistance" (all on the device).
 
 PyTorch runs eagerly, so there is nothing to compile per shape:
-`bang_alloc` runs one warm-up search at the batch shape, which builds the
-CUDA kernels (first use) and fills the caching allocator, so that
-`bang_query` timings exclude both.
+`bang_alloc(Q)` runs one warm-up search at the batch shape, which builds
+the kernels (first use) and fills the caching allocator, and records Q.
+`bang_query` then pads a smaller batch up to Q and splits a larger one into
+batches of Q, as the JAX facade does, so that every search runs at the
+shape the warm-up ran.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from bang_tpu_torch.constants import ENUM_DIST_L2, ENUM_DIST_MIPS
+from bang_tpu_torch.constants import ENABLE_GPU_STATS, ENUM_DIST_L2, ENUM_DIST_MIPS
 from bang_tpu_torch.device import resolve_device
 from bang_tpu_torch.formats.preprocess import preprocess_queries_mips
 from bang_tpu_torch.utils.config import SearchParams
@@ -27,8 +29,7 @@ from bang_tpu_torch.utils.logging import log_message
 # (reference: result_ann_t = unsigned long, bang.h:23).
 RESULT_DTYPE = np.int64
 
-_NOT_PORTED = {"base": "ROADMAP Queue 1 item 14 (models/base.py)"}
-_VARIANTS = ("inmemory", "exactdistance")
+_VARIANTS = ("base", "inmemory", "exactdistance")
 
 
 class BANGSearch:
@@ -39,34 +40,53 @@ class BANGSearch:
 
     def __init__(self, variant: str = "inmemory", dist_func: int = ENUM_DIST_L2,
                  device="cuda"):
-        if variant in _NOT_PORTED:
-            raise NotImplementedError(
-                f"variant {variant!r} is not ported yet: {_NOT_PORTED[variant]}"
-            )
         if variant not in _VARIANTS:
             raise ValueError(f"unknown variant {variant!r}")
         self.variant = variant
         self.dist_func = dist_func
         self.device = resolve_device(device)
         self._index = None
+        self._searcher = None
         self._params: SearchParams | None = None
+        self._batch: int | None = None  # bang_alloc's Q
         self.last_stats = None
 
     # -- lifecycle ----------------------------------------------------------
 
-    def bang_load(self, index_prefix: str, fused_frontier: bool | None = None,
+    def bang_load(self, index_prefix: str, mmap: bool | None = None,
+                  n_pipeline_batches: int | None = None,
+                  fused_frontier: bool | None = None,
                   neighbor_vectors: bool | None = None) -> bool:
-        """Load the index files onto the device.
+        """Load the index files for the configured variant.
 
-        fused_frontier picks the fused layout of the loaded variant (PQ
-        rows for inmemory, exact rows for exactdistance): None picks it when
-        it applies and fits models/index.FUSED_LAYOUT_BUDGET; False forces
-        the scattered layout. neighbor_vectors=True (exactdistance only)
-        builds the nbr_vecs layout instead."""
-        from bang_tpu_torch.models.index import device_index_from_files
+        base: the packed graph stays on the host, memory-mapped (mmap=None
+        or True) or read into RAM (mmap=False); n_pipeline_batches query
+        sub-batches are kept in flight (default 4); only the PQ codes go to
+        the device. The HBM variants ignore both, as the JAX facade does.
 
+        inmemory / exactdistance: fused_frontier picks the fused layout of
+        the variant (PQ rows for inmemory, exact rows for exactdistance):
+        None picks it when it applies and fits
+        models/index.FUSED_LAYOUT_BUDGET; False forces the scattered layout.
+        neighbor_vectors=True (exactdistance only) builds the nbr_vecs
+        layout. base has no device layout and refuses both."""
         log_message(f"bang_load({index_prefix}) variant={self.variant} "
                     f"device={self.device}")
+        if self.variant == "base":
+            if fused_frontier is not None or neighbor_vectors is not None:
+                raise ValueError("fused_frontier and neighbor_vectors are layouts of "
+                                 "the HBM variants; base keeps its graph on the host")
+            from bang_tpu_torch.models.base import BaseVariantSearcher
+
+            self._searcher = BaseVariantSearcher(
+                index_prefix,
+                n_pipeline_batches=4 if n_pipeline_batches is None else n_pipeline_batches,
+                mmap=True if mmap is None else mmap,
+                device=self.device,
+            )
+            return True
+        from bang_tpu_torch.models.index import device_index_from_files
+
         self._index = device_index_from_files(
             index_prefix, self.device, variant=self.variant,
             fused_frontier=fused_frontier, neighbor_vectors=neighbor_vectors,
@@ -77,16 +97,20 @@ class BANGSearch:
         self, recall_param: int, worklist_length: int, **kwargs
     ) -> None:
         """Set k (recall_param) and L (worklist length); extra kwargs feed
-        SearchParams (beam_width, extra_iters, rerank, ...)."""
+        SearchParams (beam_width, extra_iters, rerank, capabilities, ...).
+        Forgets bang_alloc's batch shape."""
         self._params = SearchParams(
             L=worklist_length, k=recall_param, dist_func=self.dist_func, **kwargs
         )
+        self._batch = None
 
     def bang_alloc(self, num_queries: int) -> None:
-        """Warm up at this batch shape (kernel build, allocator)."""
+        """Warm up at this batch shape (kernel build, allocator) and record
+        it: later batches are padded or split to it."""
         if self._params is None:
             raise RuntimeError("call bang_set_searchparams first")
-        self._run(np.zeros((num_queries, self._index.dim), np.float32))
+        self._run(np.zeros((num_queries, self._dim()), np.float32))
+        self._batch = num_queries
 
     def bang_init(self) -> None:
         """Per-batch state is initialized inside each search; nothing to do
@@ -98,22 +122,48 @@ class BANGSearch:
         if self._params is None:
             raise RuntimeError("call bang_set_searchparams first")
         queries = np.asarray(queries)
-        if self.dist_func == ENUM_DIST_MIPS and queries.shape[1] == self._index.dim - 1:
+        if self.dist_func == ENUM_DIST_MIPS and queries.shape[1] == self._dim() - 1:
             queries = preprocess_queries_mips(queries)
+        nq = queries.shape[0]
+        cap = self._batch
+        if cap is None:
+            log_message(f"bang_query at Q={nq} without bang_alloc after the last "
+                        "bang_set_searchparams: the warm-up falls into this call")
+        elif nq > cap:
+            # batches of the warmed-up shape
+            outs = [self.bang_query(queries[s : s + cap]) for s in range(0, nq, cap)]
+            return (np.concatenate([o[0] for o in outs]),
+                    np.concatenate([o[1] for o in outs]))
+        elif nq < cap:
+            queries = np.concatenate(
+                [queries, np.zeros((cap - nq, queries.shape[1]), queries.dtype)])
         ids, dists = self._run(queries)
-        return ids.cpu().numpy().astype(RESULT_DTYPE), dists.cpu().numpy()
+        return np.asarray(ids)[:nq].astype(RESULT_DTYPE), np.asarray(dists)[:nq]
 
     def bang_free(self) -> None:
-        """Search buffers are per call; nothing is held between queries."""
+        """Forget bang_alloc's batch shape; search buffers are per call."""
+        self._batch = None
 
     def bang_unload(self) -> None:
-        """Drop the index; its device memory returns to PyTorch's caching
-        allocator."""
+        """Drop the index (or base's codes and searcher); its device memory
+        returns to PyTorch's caching allocator."""
         self._index = None
+        self._searcher = None
+        self._batch = None
 
     # -- internals ----------------------------------------------------------
 
+    def _dim(self) -> int:
+        if self.variant == "base":
+            return self._searcher.meta.dim
+        return self._index.dim
+
     def _run(self, queries: np.ndarray):
+        if self.variant == "base":
+            self._searcher.timers.enabled = bool(
+                self._params.capabilities & ENABLE_GPU_STATS)
+            self.last_stats = None
+            return self._searcher.search(queries, self._params)
         if self.variant == "exactdistance":
             from bang_tpu_torch.models.exactdistance import search_exact as search
         else:
@@ -121,4 +171,4 @@ class BANGSearch:
 
         ids, dists, stats = search(self._index, queries, self._params)
         self.last_stats = stats
-        return ids, dists
+        return ids.cpu().numpy(), dists.cpu().numpy()

@@ -8,6 +8,12 @@ adjacency (`adj_planes`) next to neighbor-aligned codes (`nbr_codes`), or
 fused PQ or exact rows without an adjacency table — the [N, R] neighbor
 ids are decoded back out of it, and the port's own layout is built from
 them with the same auto-selection as loading the files.
+
+The base variant needs no converter: it holds no device index to carry
+over. `models/base.BaseVariantSearcher` reads the reference's own files —
+`<prefix>_disk.bin`, `<prefix>_disk_metadata.bin` and the two PQ files —
+which the port reads and writes byte for byte as the JAX package does
+(tests/test_torch_formats.py).
 """
 
 from __future__ import annotations

@@ -73,3 +73,30 @@ def save_truthset(path: str | os.PathLike, ids: np.ndarray, dists: np.ndarray) -
         np.array(ids.shape, dtype="<i4").tofile(f)
         ids.tofile(f)
         dists.tofile(f)
+
+
+def load_bin_auto(path: str | os.PathLike, preferred_dtype) -> np.ndarray:
+    """Load a bin file whose element dtype may differ from `preferred_dtype`.
+
+    The reference stores query files in the dataset's dtype; tooling sometimes
+    produces float32 regardless. The element size is inferred from the file
+    size; 1-byte files use `preferred_dtype` (uint8 vs int8 is ambiguous),
+    4-byte files fall back to float32.
+    """
+    preferred = np.dtype(preferred_dtype)
+    with open(path, "rb") as f:
+        header = np.fromfile(f, dtype="<i4", count=2)
+        npts, dim = int(header[0]), int(header[1])
+        payload = os.fstat(f.fileno()).st_size - 8
+    if npts * dim == 0:
+        raise ValueError(f"{path}: empty bin file")
+    itemsize, rem = divmod(payload, npts * dim)
+    if rem != 0:
+        raise ValueError(f"{path}: size {payload} not divisible by npts*dim")
+    if itemsize == preferred.itemsize:
+        return load_bin(path, preferred)
+    if itemsize == 4:
+        return load_bin(path, np.float32)
+    if itemsize == 1:
+        return load_bin(path, np.uint8)
+    raise ValueError(f"{path}: unsupported element size {itemsize}")

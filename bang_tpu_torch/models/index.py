@@ -233,9 +233,8 @@ def device_index_from_files(
     it (see above), False forces the scattered layout. neighbor_vectors
     (exactdistance only): True builds the nbr_vecs layout."""
     if variant == "base":
-        raise NotImplementedError(
-            "variant 'base' is not ported yet: ROADMAP Queue 1 item 14"
-        )
+        raise ValueError("variant 'base' has no device index: its graph stays on "
+                         "the host (models/base.BaseVariantSearcher)")
     if variant == "exactdistance":
         graph = load_graph_index(prefix)
         return assemble_exact_index(graph.adj, graph.vectors, graph.medoid,

@@ -1,5 +1,6 @@
-"""Runtime search parameters, copied from bang_tpu/utils/config.py
-(`SearchParams` only; the dataset presets are not copied).
+"""Runtime search parameters and dataset presets, copied from
+bang_tpu/utils/config.py (`SearchParams`, `DatasetPreset`,
+`DATASET_PRESETS`).
 
 The port's functions read a SearchParams' fields and check no class, so
 they take bang_tpu's SearchParams as well; both raise on the same invalid
@@ -58,3 +59,34 @@ class SearchParams:
         # = the total expansion budget; a wider beam spends it in fewer
         # sequential iterations.
         return -(-(self.L + self.extra_iters) // self.beam_width)
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetPreset:
+    """Per-dataset constants (reference parANN.h `#define` blocks, as data)."""
+
+    name: str
+    dtype: str
+    dim: int
+    n: int
+    chunks: int
+    default_L: int = 64
+
+
+# Mirrors BANG_Inmemory/parANN.h:38-158 and BANG_Exactdistance/parANN.h:38-197.
+DATASET_PRESETS = {
+    p.name: p
+    for p in [
+        DatasetPreset("sift1m", "uint8", 128, 1_000_000, 32),
+        DatasetPreset("gist1m", "float32", 960, 1_000_000, 120),
+        DatasetPreset("glove200", "float32", 201, 1_183_514, 50),
+        DatasetPreset("nytimes", "float32", 256, 290_000, 64),
+        DatasetPreset("mnist8m", "uint8", 784, 8_100_000, 98),
+        DatasetPreset("sift100m", "uint8", 128, 100_000_000, 64),
+        DatasetPreset("deep100m", "float32", 96, 100_000_000, 48),
+        DatasetPreset("sift1b", "uint8", 128, 1_000_000_000, 74),
+        DatasetPreset("deep1b", "float32", 96, 1_000_000_000, 48),
+        DatasetPreset("spacev1b", "int8", 100, 1_000_000_000, 50),
+        DatasetPreset("sift10k", "float32", 128, 10_000, 32),
+    ]
+}

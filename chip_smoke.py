@@ -73,6 +73,21 @@ Phases, each printing progress; any failure raises and exits non-zero:
   9. sampled  — entry_mode="sampled" at each variant's best L (K3, K2):
                 recall@10 >= 90; and at its sweep's smallest L. Both printed
                 beside the medoid runs.
+ 10. base     — BANGSearch("base") on the same bundle at bench.py::
+                sweep_base's operating point: the packed graph read into host
+                RAM (mmap=False), the PQ codes on the card, 8 pipeline
+                sub-batches (one CUDA stream each), L in {30, 45, 60, 90},
+                beam 2, extra_iters 16, ENABLE_GPU_STATS on: recall@10, device
+                steps, readback waits, the four stage ms, wall and QPS per L;
+                recall@10 >= 90 at the best L; K1 launched once per device
+                step and no other kernel. At the best L: one sub-batch
+                (serial) must return the pipelined run's ids for every query
+                (its wall gives the pipeline's speedup), and sampled entry
+                recall@10 >= 90. Then the native host gather alone on one
+                sub-batch's parents, and one call under torch.profiler
+                (kernel ms by name and by step stage, the code gather's ms,
+                the card's busy share over the union of kernel intervals on
+                all streams, peak memory).
 Each probe script and each search phase zeroes every launch count just
 before it and reads them just after: the kernels of its path must have
 launched and no other. The second-to-last line is a JSON object describing
@@ -102,6 +117,10 @@ EXACT_L_SWEEP = (10, 16, 30, 60, 100)
 EXACT_PROFILE_L = 100  # the exact L whose fused search is profiled
 VAMANA = {"l_build": 48, "batch": 4096, "alpha": 1.44, "n_passes": 2, "seed": 0}
 RECALL_TARGET = 90.0
+# base: bench.py::sweep_base's operating point (bench.py:502-503), the graph
+# read into RAM as in the reference's configuration
+BASE_L_SWEEP = (30, 45, 60, 90)
+BASE_BEAM, BASE_EXTRA, BASE_PIPELINE = 2, 16, 8
 
 # (label, Q, N rows, R, m, beam, ids drawn below): the main path's shape,
 # then the other shapes the kernels must take.
@@ -722,11 +741,14 @@ PROFILE_STAGES = ("exact_new_mask", "first_occurrence_mask_blocks", "merge_workl
 
 
 @contextlib.contextmanager
-def _traversal_stages(mask):
-    """Run the traversal with `mask` as its visited mask and each of
-    PROFILE_STAGES inside a torch.profiler range of its name (the kernels a
-    range launches count towards its device time); restore them after."""
-    from bang_tpu_torch.models import traversal
+def _traversal_stages(mask, traversal=None):
+    """Run the traversal (models/traversal, or the module given, which calls
+    the same step functions by the same names: models/base) with `mask` as
+    its visited mask and each of PROFILE_STAGES inside a torch.profiler
+    range of its name (the kernels a range launches count towards its device
+    time); restore them after."""
+    if traversal is None:
+        from bang_tpu_torch.models import traversal
 
     saved = {name: getattr(traversal, name) for name in PROFILE_STAGES}
     fns = {**saved, "exact_new_mask": mask}
@@ -788,30 +810,266 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True):
                 s.bang_query(queries)
                 wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        # the stage ranges also appear on the device's timeline under their
-        # own names: they are spans, not kernels
-        kernels = sorted(
-            ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.self_device_time_total > 0 and e.key not in PROFILE_STAGES),
-            reverse=True)
-        total = sum(k[0] for k in kernels)
         log(f"{label}: {s.last_stats.iters} iterations; walls of 3 timed calls "
             + " / ".join(f"{w:.4f}" for w in walls) + f" s; profiled call {wall:.4f} s")
-        for ms, count, key in kernels[:16]:
-            log(f"profile {ms:10.3f} ms {count:6d} calls  {key[:100]}")
-        stages = {}  # name -> [device ms of the kernels each range launched, calls]
-        for e in prof.events():
-            if e.name in PROFILE_STAGES and e.device_type == torch.autograd.DeviceType.CPU:
-                acc = stages.setdefault(e.name, [0.0, 0])
-                acc[0] += e.device_time_total / 1e3
-                acc[1] += 1
-        log(f"{label} stages (kernel ms): " + ", ".join(
-            f"{k} {ms:.3f} ms ({n} calls)" for k, (ms, n) in stages.items()))
+        total = _read_profile(prof, label, PROFILE_STAGES)[0]
         log(f"{label}: kernels {total:.3f} ms in a {wall * 1e3:.3f} ms wall, busy "
             f"{total / (wall * 1e3):.1%}; peak {peak / 1e9:.2f} GB")
     s.bang_unload()
     torch.cuda.empty_cache()
+
+
+def _read_profile(prof, label, stage_names):
+    """Print the device ms of each kernel name (the top 16) and of each
+    profiler range in `stage_names` (the kernels it launched) over a
+    profiled call; returns (kernel ms in all, {range: [ms, calls]}, the
+    (ms, calls, name) rows of every kernel, largest first)."""
+    # the stage ranges also appear on the device's timeline under their
+    # own names: they are spans, not kernels
+    kernels = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0 and e.key not in stage_names),
+        reverse=True)
+    for ms, count, key in kernels[:16]:
+        log(f"profile {ms:10.3f} ms {count:6d} calls  {key[:100]}")
+    stages = {}  # name -> [device ms of the kernels each range launched, calls]
+    for e in prof.events():
+        if e.name in stage_names and e.device_type == torch.autograd.DeviceType.CPU:
+            acc = stages.setdefault(e.name, [0.0, 0])
+            acc[0] += e.device_time_total / 1e3
+            acc[1] += 1
+    log(f"{label} stages (kernel ms): " + ", ".join(
+        f"{k} {ms:.3f} ms ({n} calls)" for k, (ms, n) in stages.items()))
+    return sum(k[0] for k in kernels), stages, kernels
+
+
+def _busy_ms(prof, stage_names):
+    """Device ms during which at least one kernel ran, on any stream: the
+    union of the kernels' intervals (several streams overlap, so their sum
+    can pass the wall)."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.name not in stage_names and e.time_range.end > e.time_range.start)
+    if not spans:
+        raise AssertionError("the profiler recorded no kernel on the card")
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e3
+
+
+def run_base(prefix, dev, l_values, n_pipeline_batches=BASE_PIPELINE,
+             entry_mode="medoid"):
+    """BANGSearch("base") over `l_values` at bench.py::sweep_base's beam and
+    extra_iters, the graph read into RAM, ENABLE_GPU_STATS on; one row per L
+    (the returned ids, device steps, readback waits, stage ms). Returns
+    (rows, steps): every device step of these calls, the warm-ups of
+    bang_alloc included."""
+    from bang_tpu_torch.api import BANGSearch
+    from bang_tpu_torch.constants import ENABLE_GPU_STATS
+    from bang_tpu_torch.formats.bin_io import load_bin, load_truthset
+    from bang_tpu_torch.utils.recall import calculate_recall
+
+    queries = load_bin(prefix + "_query.bin", np.uint8)
+    gt_ids, gt_dists = load_truthset(prefix + "_gt.bin")
+    s = BANGSearch("base", device=dev)
+    t0 = time.perf_counter()
+    s.bang_load(prefix, mmap=False, n_pipeline_batches=n_pipeline_batches)
+    searcher = s._searcher
+    vectors = searcher.raw[:, : searcher.vec_bytes]  # u8 data: the vectors' bytes
+    label = f"base pipeline={n_pipeline_batches} {entry_mode}"
+    log(f"bang_load base in {time.perf_counter() - t0:.1f}s: "
+        f"{searcher.raw.nbytes / 1e6:.1f} MB of records in host RAM, "
+        f"{searcher.codes.numel() / 1e6:.1f} MB of codes on the card")
+    rows, steps = [], 0
+    for L in l_values:
+        s.bang_set_searchparams(K, L, beam_width=BASE_BEAM, extra_iters=BASE_EXTRA,
+                                entry_mode=entry_mode, capabilities=ENABLE_GPU_STATS)
+        s.bang_alloc(len(queries))
+        steps += searcher.last_n_steps
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, dists = s.bang_query(queries)  # host arrays: the device is done
+        wall = time.perf_counter() - t0
+        steps += searcher.last_n_steps
+        _check_output(ids, dists, queries, vectors, len(vectors))
+        row = {"search": label, "L": L,
+               "recall": calculate_recall(gt_ids, ids, K, gt_dists),
+               "steps": searcher.last_n_steps, "d2h": searcher.last_n_d2h,
+               "stages": dict(searcher.timers.ms), "wall_s": wall,
+               "qps": len(queries) / wall, "ids": ids}
+        log(f"search {label} L={L} recall@10={row['recall']:.2f} "
+            f"steps={row['steps']} d2h waits={row['d2h']} wall={wall:.4f}s "
+            f"qps={row['qps']:.1f}; stage ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in row["stages"].items()))
+        rows.append(row)
+    s.bang_unload()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows, steps
+
+
+def _k1_per_step(label, steps):
+    """K1 launched once per device step of the phase just counted."""
+    from bang_tpu_torch.ops import pq_kernels as pk
+
+    if pk.pq_lookup.launches != steps:
+        raise AssertionError(f"{label}: K1 launched {pk.pq_lookup.launches} times "
+                             f"for {steps} device steps")
+    log(f"{label}: K1 launches {steps} = device steps dispatched")
+
+
+def host_gather_alone(prefix, dev):
+    """The native host gather alone (bench.py:610-617) on one sub-batch's
+    parents (Q/8 x beam random ids) and on the serial call's (Q x beam),
+    into pinned buffers as the pipeline calls it, at the automatic thread
+    count (native.ROWS_PER_THREAD) and at 1, 2, 4 and 8 threads, each twice
+    in the order 1, 2, 4, 8, auto, auto, 8, 4, 2, 1: ms per call over 10
+    calls after one warm-up. Returns the automatic count's mean ms on one
+    sub-batch."""
+    from bang_tpu_torch.models.base import BaseVariantSearcher
+
+    searcher = BaseVariantSearcher(prefix, n_pipeline_batches=BASE_PIPELINE,
+                                   mmap=False, device=dev)
+    m = searcher.meta
+    rng = np.random.default_rng(0)
+    pin = dev.type == "cuda"
+    out = None
+    for rows in (Q // BASE_PIPELINE * BASE_BEAM, Q * BASE_BEAM):
+        parents = rng.integers(0, m.n, rows).astype(np.int32)
+        nbrs = torch.empty((rows, m.degree), dtype=torch.int32, pin_memory=pin)
+        vecs = torch.empty((rows, searcher.vec_bytes), dtype=torch.uint8,
+                           pin_memory=pin)
+        times = {}  # thread count -> ms, in the order 1 .. 8, auto, auto .. 1
+        for threads in (1, 2, 4, 8, 0, 0, 8, 4, 2, 1):
+            searcher.n_threads = threads
+            searcher._host_gather(parents, nbrs.numpy(), vecs.numpy())  # warm
+            t0 = time.perf_counter()
+            for _ in range(10):
+                searcher._host_gather(parents, nbrs.numpy(), vecs.numpy())
+            times.setdefault(threads, []).append((time.perf_counter() - t0) / 10 * 1e3)
+        log(f"host gather alone, {rows} parents "
+            f"({rows * (m.degree * 4 + searcher.vec_bytes) / 1e6:.2f} MB out): "
+            + ", ".join(f"{'auto' if t == 0 else t} threads "
+                        + " / ".join(f"{ms:.4f}" for ms in v) + " ms"
+                        for t, v in times.items()))
+        out = sum(times[0]) / 2 if out is None else out
+    return out
+
+
+def profile_base(prefix, dev, L):
+    """BANGSearch("base") at L as in phase 10: three timed calls, then one
+    under torch.profiler with each step stage (PROFILE_STAGES, models/base)
+    and the code gather of the PQ lookup in profiler ranges. Prints kernel
+    ms by name and by range, the stage timers of the profiled call, the
+    card's busy share (the union of kernel intervals over the wall) and the
+    call's peak memory."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from bang_tpu_torch.api import BANGSearch
+    from bang_tpu_torch.constants import ENABLE_GPU_STATS
+    from bang_tpu_torch.formats.bin_io import load_bin
+    from bang_tpu_torch.models import base
+    from bang_tpu_torch.ops import visited
+
+    queries = load_bin(prefix + "_query.bin", np.uint8)
+    s = BANGSearch("base", device=dev)
+    s.bang_load(prefix, mmap=False, n_pipeline_batches=BASE_PIPELINE)
+    searcher = s._searcher
+
+    class RangedCodes:
+        """The codes, their row gather (`codes[cand]` in the distance
+        function) inside a profiler range of its own."""
+
+        def __getitem__(self, idx):
+            with record_function("code_gather"):
+                return searcher.codes[idx]
+
+    def ranged_tables(sub_queries):  # what _prepare_tables makes, over RangedCodes
+        return base.make_pq_distance_fn(sub_queries, searcher.codebook, RangedCodes())
+
+    s.bang_set_searchparams(K, L, beam_width=BASE_BEAM, extra_iters=BASE_EXTRA,
+                            capabilities=ENABLE_GPU_STATS)
+    s.bang_alloc(len(queries))
+    label = f"profile base L={L}"
+    names = PROFILE_STAGES + ("code_gather",)
+    with _traversal_stages(visited.exact_new_mask, base):
+        searcher._prepare_tables = ranged_tables
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.bang_query(queries)
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s.bang_query(queries)
+            wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: {searcher.last_n_steps} device steps, {searcher.last_n_d2h} "
+        f"readback waits; walls of 3 timed calls "
+        + " / ".join(f"{w:.4f}" for w in walls) + f" s; profiled call {wall:.4f} s; "
+        "stage ms " + ", ".join(f"{k} {v:.3f}" for k, v in searcher.timers.ms.items()))
+    total, stages, kernels = _read_profile(prof, label, names)
+    busy = _busy_ms(prof, names)
+    # K1 per launch at a sub-batch's shape against its bound there
+    q_b, c, m = Q // BASE_PIPELINE, BASE_BEAM * R, M
+    k1_ms, k1_n = next((ms, n) for ms, n, key in kernels if "pq_lookup_kernel" in key)
+    bound = (q_b * m * 512 + q_b * c * m + q_b * c * 4) / HBM_BYTES_PER_S * 1e3
+    gather_ms, gather_n = stages["code_gather"]
+    log(f"{label}: K1 {k1_ms / k1_n:.4f} ms a launch at Q={q_b} C={c} m={m} (bound "
+        f"{bound:.4f} ms, {bound / (k1_ms / k1_n):.0%} of it); the code gather "
+        f"{gather_ms / gather_n:.4f} ms a step")
+    log(f"{label}: kernels {total:.3f} ms summed over the streams, busy "
+        f"{busy:.3f} ms of a {wall * 1e3:.3f} ms wall ({busy / (wall * 1e3):.1%}); "
+        f"peak {peak / 1e9:.2f} GB")
+    s.bang_unload()
+    torch.cuda.empty_cache()
+
+
+def phase_base(prefix, dev, totals):
+    """Phase 10 on the bundle at `prefix`; adds its launch counts (not the
+    profiled call's) to `totals`."""
+    rows, steps = counted("search base", {"pq_lookup"},
+                          lambda: run_base(prefix, dev, BASE_L_SWEEP), totals)
+    _k1_per_step("search base", steps)
+    best = _best(rows, "base")
+    (serial,), steps = counted(
+        "search base serial", {"pq_lookup"},
+        lambda: run_base(prefix, dev, (best["L"],), n_pipeline_batches=1), totals)
+    _k1_per_step("search base serial", steps)
+    same = (serial["ids"] == best["ids"]).all(axis=1)
+    if not same.all():
+        raise AssertionError(f"base L={best['L']}: one sub-batch's ids differ from "
+                             f"the pipelined run's on {int((~same).sum())} queries")
+    log(f"base L={best['L']}: ids of 1 and {BASE_PIPELINE} sub-batches identical "
+        f"on all {len(same)} queries; wall {serial['wall_s']:.4f} s serial, "
+        f"{best['wall_s']:.4f} s pipelined: speedup "
+        f"{serial['wall_s'] / best['wall_s']:.3f}")
+    (samp,), steps = counted(
+        "search base sampled", {"pq_lookup"},
+        lambda: run_base(prefix, dev, (best["L"],), entry_mode="sampled"), totals)
+    _k1_per_step("search base sampled", steps)
+    log(f"entry at L={best['L']}: base sampled recall@10 {samp['recall']:.2f} steps "
+        f"{samp['steps']} | medoid recall@10 {best['recall']:.2f} steps {best['steps']}")
+    if samp["recall"] < RECALL_TARGET:
+        raise AssertionError(f"base sampled: recall@10 {samp['recall']:.2f} "
+                             f"< {RECALL_TARGET}")
+    pure = host_gather_alone(prefix, dev)
+    in_loop = best["stages"]["host_gather"] / best["steps"]
+    log(f"host gather per step: {pure:.4f} ms alone, {in_loop:.4f} ms in the loop "
+        f"(L={best['L']})")
+    profile_base(prefix, dev, best["L"])
+    return best
 
 
 def counted(label, launched, fn, totals):
@@ -840,8 +1098,8 @@ def _best(rows, what):
 
 
 def search_phases(dev, totals):
-    """Phases 4-9 on `dev`; adds the launch counts of 5-9 to `totals` (not
-    those of the profiled calls after phases 5, 6 and 7)."""
+    """Phases 4-10 on `dev`; adds the launch counts of 5-10 to `totals` (not
+    those of the profiled calls after phases 5, 6, 7 and 10)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         prefix = os.path.join(tmp, "synth1m")
         build_bundle(prefix, dev)
@@ -894,9 +1152,12 @@ def search_phases(dev, totals):
             if rows[-1]["recall"] < RECALL_TARGET:
                 raise AssertionError(f"{rows[-1]['search']}: recall@10 "
                                      f"{rows[-1]['recall']:.2f} < {RECALL_TARGET}")
+        best_b = phase_base(prefix, dev, totals)
     log(f"ok: inmemory best L={best['L']} recall@10 {best['recall']:.2f}, "
         f"scattered ids and iterations identical; exactdistance best "
-        f"L={best_e['L']} recall@10 {best_e['recall']:.2f}, scattered ids identical")
+        f"L={best_e['L']} recall@10 {best_e['recall']:.2f}, scattered ids identical; "
+        f"base best L={best_b['L']} recall@10 {best_b['recall']:.2f}, pipelined ids "
+        f"identical to serial")
 
 
 def main():

@@ -102,7 +102,8 @@ def test_layout_auto_selection_and_budget(tiny_index, monkeypatch, tmp_path):
     ix = tindex.device_index_from_files(prefix, "cpu")
     assert ix.fused_rows is None and ix.adj.dtype == torch.int32
     assert ix.adj.shape == (g.n, g.r)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # base keeps its graph on the host (models/base.py): no device index
+    with pytest.raises(ValueError, match="BaseVariantSearcher"):
         tindex.device_index_from_files(prefix, "cpu", variant="base")
     # over the budget, u8 data falls back to the scattered exact layout
     u8 = synthetic.build_synthetic_index(str(tmp_path / "u8"), n=600, dim=8, r=8, m=2,

@@ -126,15 +126,17 @@ def test_exact_new_mask_bit_identical(q, c, l, mi, case):
 
 @pytest.mark.parametrize("caps", [0, 1, 2, 3])
 def test_check_params_refuses_capabilities(caps):
-    """Every capabilities bit raises, naming what will serve it; 0 passes."""
+    """ENABLE_GPU_STATS (1) is served, as in the JAX package; any set
+    ENABLE_CACHE_WARMUP bit (2, 3) raises, naming the ROADMAP item that will
+    serve it."""
     from bang_tpu_torch.models.traversal import check_params
     from bang_tpu_torch.utils.config import SearchParams
 
     params = SearchParams(L=16, capabilities=caps)
-    if caps == 0:
+    if caps in (0, 1):
         check_params(params)
         return
-    with pytest.raises(NotImplementedError, match="capabilities"):
+    with pytest.raises(NotImplementedError, match="capabilities.*ROADMAP Queue 1 item 11"):
         check_params(params)
 
 

@@ -205,8 +205,7 @@ def test_api_returns_int64_and_rejects_unported(fused64_index):
     ids, dists = s.bang_query(queries[:5])
     assert ids.dtype == np.int64 and ids.shape == (5, 10)
     assert dists.dtype == np.float32 and np.isfinite(dists).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BANGSearch("base", device="cpu")
+    assert BANGSearch("base", device="cpu").variant == "base"
     assert BANGSearch("exactdistance", device="cpu").variant == "exactdistance"
     with pytest.raises(ValueError, match="unknown variant"):
         BANGSearch("exact", device="cpu")

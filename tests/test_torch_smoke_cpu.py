@@ -19,7 +19,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 _NO_JAX_SEARCH = r"""
-import importlib, pkgutil, sys, tempfile
+import importlib, pathlib, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # any JAX import now raises ImportError
 sys.modules["bang_tpu"] = None  # and so does any import of the JAX package
 import numpy as np
@@ -49,6 +49,17 @@ with tempfile.TemporaryDirectory() as tmp:
     e.bang_set_searchparams(5, 16)
     ids, dists = e.bang_query(data[:3].astype(np.float32))
     assert ids[:, 0].tolist() == [0, 1, 2] and (dists[:, 0] == 0).all(), ids
+    # base: the native host gather built here from its source, then searched
+    from bang_tpu_torch import native
+    native.BUILD_DIR = pathlib.Path(tmp) / "build"
+    b = BANGSearch("base", device="cpu")
+    b.bang_load(info["prefix"], n_pipeline_batches=3)
+    b.bang_set_searchparams(10, 16, beam_width=2, capabilities=1)
+    b.bang_alloc(8)
+    ids, dists = b.bang_query(load_bin(info["prefix"] + "_query.bin", np.float32)[:5])
+    assert ids.dtype == np.int64 and ids.shape == (5, 10), ids.shape
+    assert native.library_path().parent == native.BUILD_DIR and native.library_path().exists()
+    assert b._searcher.timers.ms["host_gather"] > 0
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not any(m.split(".")[0] in ("jax", "bang_tpu") for m in loaded), loaded
 assert "bang_tpu_torch.scripts.exp_dma_tiled" in loaded
