@@ -10,6 +10,8 @@ with L2 / MIPS distance functions (bang.h:26-30), over the three variants:
 PyTorch runs eagerly, so there is nothing to compile per shape:
 `bang_alloc(Q)` runs one warm-up search at the batch shape, which builds
 the kernels (first use) and fills the caching allocator, and records Q.
+With ENABLE_CACHE_WARMUP it first runs `utils/graph_tools.warmup_touch`
+(the reference's BFS warm-up of the codes), as the JAX facade does.
 `bang_query` then pads a smaller batch up to Q and splits a larger one into
 batches of Q, as the JAX facade does, so that every search runs at the
 shape the warm-up ran.
@@ -19,7 +21,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from bang_tpu_torch.constants import ENABLE_GPU_STATS, ENUM_DIST_L2, ENUM_DIST_MIPS
+from bang_tpu_torch.constants import (
+    ENABLE_CACHE_WARMUP,
+    ENABLE_GPU_STATS,
+    ENUM_DIST_L2,
+    ENUM_DIST_MIPS,
+)
 from bang_tpu_torch.device import resolve_device
 from bang_tpu_torch.formats.preprocess import preprocess_queries_mips
 from bang_tpu_torch.utils.config import SearchParams
@@ -35,10 +42,13 @@ _VARIANTS = ("base", "inmemory", "exactdistance")
 class BANGSearch:
     """Facade over the search variants, on an explicit `device`.
 
-    device: "cuda" (the default; raises when no CUDA device is visible) or
-    "cpu" (the plain PyTorch path the CPU tests use)."""
+    variant: "base" (the default, as in the JAX facade), "inmemory" or
+    "exactdistance". device: "cuda" (the default; raises when no CUDA
+    device is visible) or "cpu" (the plain PyTorch path the CPU tests use).
+    `warmup_touched` holds the node count of the last ENABLE_CACHE_WARMUP
+    warm-up (None before one)."""
 
-    def __init__(self, variant: str = "inmemory", dist_func: int = ENUM_DIST_L2,
+    def __init__(self, variant: str = "base", dist_func: int = ENUM_DIST_L2,
                  device="cuda"):
         if variant not in _VARIANTS:
             raise ValueError(f"unknown variant {variant!r}")
@@ -50,6 +60,7 @@ class BANGSearch:
         self._params: SearchParams | None = None
         self._batch: int | None = None  # bang_alloc's Q
         self.last_stats = None
+        self.warmup_touched: int | None = None
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -106,9 +117,17 @@ class BANGSearch:
 
     def bang_alloc(self, num_queries: int) -> None:
         """Warm up at this batch shape (kernel build, allocator) and record
-        it: later batches are padded or split to it."""
+        it: later batches are padded or split to it. With ENABLE_CACHE_WARMUP
+        the BFS warm-up runs first (for base the BFS walks the host
+        records)."""
         if self._params is None:
             raise RuntimeError("call bang_set_searchparams first")
+        if self._params.capabilities & ENABLE_CACHE_WARMUP:
+            from bang_tpu_torch.utils.graph_tools import warmup_touch
+
+            self.warmup_touched = warmup_touch(
+                self._searcher if self.variant == "base" else self._index)
+            log_message(f"cache warmup touched {self.warmup_touched} nodes")
         self._run(np.zeros((num_queries, self._dim()), np.float32))
         self._batch = num_queries
 

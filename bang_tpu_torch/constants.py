@@ -9,6 +9,7 @@ Reference provenance:
   - MAX_L=512:           BANG_Base/bang.h:20
   - extra iterations 50: BANG_Base/bang_search.cu:53 (NAX_EXTRA_ITERATION)
   - 256 PQ centers:      DiskANN PQ convention (BANG_Base/bang_search.cu:263-270)
+  - BF_ENTRIES=399887:   BANG_Base/bang_search.cu:48 (bloom filter cells/query)
 """
 
 # Maximum graph degree (adjacency rows are padded to this).
@@ -19,6 +20,9 @@ MAX_L = 512
 
 # Extra search iterations beyond L before the traversal is force-terminated.
 DEFAULT_EXTRA_ITERS = 50
+
+# Bloom-filter cells per query (a prime; one byte per cell, ops/bloom.py).
+BF_ENTRIES = 399887
 
 # Number of PQ centers per chunk (8-bit codes).
 PQ_NUM_CENTERS = 256

@@ -89,10 +89,15 @@ def _unique_padded(x, size: int, fill: int):
 
 def _insert_batch(adj, degrees, vectors, norms, p_ids, medoid: int, r: int,
                   alpha: float, l: int, max_iters: int, k_overflow: int,
-                  max_in: int):
+                  max_in: int, extra_cand=None):
     """Insert a batch of points: search + prune + scatter + reverse edges.
     adj [N+1, r] and degrees [N+1] (row N is the trash row) are updated in
-    place. Returns the count of dropped reverse edges (device scalar)."""
+    place. Returns the count of dropped reverse edges (device scalar).
+
+    extra_cand [B, P] int32 (optional): more candidate ids joined into the
+    prune pool. Streaming inserts pass each point's nearest peers in its
+    batch here, so that a batch landing in a small graph links to its own
+    points, not only to the medoid's neighborhood (models/streaming.py)."""
     n = adj.shape[0] - 1
     b = p_ids.shape[0]
     dev = adj.device
@@ -101,7 +106,10 @@ def _insert_batch(adj, degrees, vectors, norms, p_ids, medoid: int, r: int,
     final = run_traversal(adj, dist_fn, medoid, b, l, max_iters, 1, dev)
 
     # Vamana candidate pool: the visited set of the greedy search + old edges
-    cand = torch.cat([final.visited_ids, adj[p]], dim=1)
+    pool = [final.visited_ids, adj[p]]
+    if extra_cand is not None:
+        pool.append(extra_cand.to(torch.int32))
+    cand = torch.cat(pool, dim=1)
     new_rows, new_deg = _prune_ids(vectors, norms, p_ids, cand, r, alpha)
     adj[p] = new_rows
     degrees[p] = new_deg

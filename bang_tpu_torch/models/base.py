@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,6 +40,7 @@ from bang_tpu_torch.formats.graph import (
 from bang_tpu_torch.formats.pq import load_pq
 from bang_tpu_torch.models.traversal import check_params, make_pq_distance_fn
 from bang_tpu_torch.native import gather_parents
+from bang_tpu_torch.ops.bloom import bloom_insert, bloom_positions, bloom_query, new_bloom
 from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_parents_beam
 from bang_tpu_torch.ops.pq import prepare_pq_codebook
 from bang_tpu_torch.ops.visited import exact_new_mask, first_occurrence_mask_blocks
@@ -57,16 +58,18 @@ class BaseState(NamedTuple):
     parent_valid: torch.Tensor  # [Q, P] bool
     visited_ids: torch.Tensor  # [Q, MI*P] i32
     l2_dists: torch.Tensor  # [Q, MI*P] f32 exact distances of expanded nodes
+    bloom: Optional[torch.Tensor]  # [Q, BF + 1] u8 (ops/bloom.py) or None (exact)
     active: torch.Tensor  # [Q] bool
     it: int  # host-side iteration counter
 
 
 def _init_state(q: int, l: int, max_iters: int, entries: torch.Tensor,
-                beam: int = 1) -> BaseState:
+                beam: int = 1, use_bloom: bool = False) -> BaseState:
     """entries [Q, P<=beam] int32 seed the first P beam slots per query. The
     worklist starts empty (unlike traversal.init_state): the first step
     computes each entry's exact distance when its vector arrives from the
-    host, and its neighbors fill the worklist."""
+    host, and its neighbors fill the worklist. use_bloom: a bloom filter
+    holding the seeds (then every step filters with it)."""
     dev = entries.device
     p = entries.shape[1]
     if p > beam:
@@ -79,7 +82,11 @@ def _init_state(q: int, l: int, max_iters: int, entries: torch.Tensor,
     visited[:, :p] = entries
     l2d = torch.full((q, max_iters * beam), float("inf"), dtype=torch.float32,
                      device=dev)
-    return BaseState(wl_dist, wl_ids, wl_vis, parent_valid, visited, l2d,
+    bloom = None
+    if use_bloom:
+        bloom = bloom_insert(new_bloom(q, dev), entries,
+                             torch.ones((q, p), dtype=torch.bool, device=dev))
+    return BaseState(wl_dist, wl_ids, wl_vis, parent_valid, visited, l2d, bloom,
                      torch.ones((q,), dtype=torch.bool, device=dev), 1)
 
 
@@ -88,7 +95,8 @@ def _step_core(state: BaseState, nbrs, parent_vecs, queries_f32, raw, beam):
     int32, the parents' vectors parent_vecs [Q, P, D] in the index's storage
     dtype, and the candidates' PQ distances raw [Q, P*R] f32. Returns (new
     state, parents [Q, P] int32, active.any()). The visited and exact
-    distance slots are written in place (the old state is not read again)."""
+    distance slots, and the bloom filter when the state has one, are written
+    in place (the old state is not read again)."""
     it = state.it
     # exact distances of the parents expanded now (their visited slots are
     # (it-1)*P ...): the cast is exact for integer data, a no-op for f32
@@ -98,10 +106,17 @@ def _step_core(state: BaseState, nbrs, parent_vecs, queries_f32, raw, beam):
         ~(state.parent_valid & state.active[:, None]), float("inf"))
     cand_valid = state.parent_valid.repeat_interleave(nbrs.shape[1] // beam, dim=1)
 
-    new = exact_new_mask(nbrs, state.wl_ids, state.visited_ids)
+    use_bloom = state.bloom is not None
+    if use_bloom:
+        pos = bloom_positions(nbrs, state.bloom.shape[1] - 1)  # query + insert
+        new = ~bloom_query(state.bloom, nbrs, pos)
+    else:
+        new = exact_new_mask(nbrs, state.wl_ids, state.visited_ids)
     new = new & cand_valid & state.active[:, None]
     if beam > 1:
         new = new & first_occurrence_mask_blocks(nbrs, beam)
+    if use_bloom:
+        bloom_insert(state.bloom, nbrs, new, pos)
     dist = raw.masked_fill(~new, float("inf"))
     wl_dist, wl_ids, wl_vis = merge_worklist(
         state.wl_dist, state.wl_ids, state.wl_vis, dist, nbrs
@@ -113,7 +128,7 @@ def _step_core(state: BaseState, nbrs, parent_vecs, queries_f32, raw, beam):
     visited[:, it * beam : (it + 1) * beam] = parents.masked_fill(~parent_valid,
                                                                   INVALID_ID)
     new_state = BaseState(wl_dist, wl_ids, wl_vis, parent_valid, visited, l2d,
-                          active, it + 1)
+                          state.bloom, active, it + 1)
     return new_state, parents, active.any()
 
 
@@ -181,7 +196,8 @@ class _SubBatch:
             self.queries = torch.tensor(queries, device=dev)
             self.distance_fn = searcher._prepare_tables(self.queries)
             entries = searcher._select_entries(self.queries, params, beam)
-            self.state = _init_state(q, params.L, params.max_iters, entries, beam)
+            self.state = _init_state(q, params.L, params.max_iters, entries, beam,
+                                     params.visited_mode == "bloom")
             # a blocking copy: it waits for this stream
             self.parents_host[:, : entries.shape[1]].copy_(entries)
         self.pending = False  # a step was dispatched and not read back yet

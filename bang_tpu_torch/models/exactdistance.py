@@ -48,6 +48,7 @@ def search_exact(index: DeviceIndex, queries, params: SearchParams):
     final = run_traversal(
         index.adj, distance_fn, index.medoid, q, params.L, params.max_iters,
         params.beam_width, dev, entry_ids=entry_ids, entry_dists=entry_dists,
+        use_bloom=params.visited_mode == "bloom",
     )
     return (final.wl_ids[:, : params.k], final.wl_dist[:, : params.k],
             SearchStats(final.it, final.n_expanded, final.n_dist_comps))

@@ -45,6 +45,7 @@ def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
     final = run_traversal(
         index.adj, distance_fn, index.medoid, q, params.L, params.max_iters,
         params.beam_width, dev, entry_ids=entry_ids, entry_dists=entry_dists,
+        use_bloom=params.visited_mode == "bloom",
     )
     if params.rerank:
         ids, dists = rerank_topk(queries_f32, index.vectors, final.visited_ids,

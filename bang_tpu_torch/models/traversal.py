@@ -13,17 +13,23 @@ iteration, as the reference reads its `nextIter` flag (parANN.cu:595);
 removing that sync (CUDA graphs over blocks of iterations) is ROADMAP
 Queue 1 item 13. Two distance functions drive it: PQ table lookup
 (`make_pq_distance_fn`, kernels K1 and K2) and exact L2
-(`make_exact_distance_fn`, kernel K3). The bloom visited set belongs to a
-later slice.
+(`make_exact_distance_fn`, kernel K3). Two visited sets filter the
+candidates: the exact mask (ops/visited.exact_new_mask, the default) or the
+reference's per-query bloom filter (ops/bloom.py, `visited_mode="bloom"`),
+inserted after the beam's first-occurrence mask, in the JAX package's
+order. The bloom filter also blocks the re-entry of nodes evicted before
+they were expanded, which the exact mask allows; the JAX package differs
+the same way.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from bang_tpu_torch.constants import ENABLE_CACHE_WARMUP, ENABLE_GPU_STATS, INVALID_ID
+from bang_tpu_torch.ops.bloom import bloom_insert, bloom_positions, bloom_query, new_bloom
 from bang_tpu_torch.ops.exact_kernels import exact_frontier
 from bang_tpu_torch.ops.l2 import l2_distance_to_candidates
 from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_parents_beam
@@ -40,6 +46,7 @@ class TraversalState(NamedTuple):
     parents: torch.Tensor  # [Q, P] i32 — selected last iteration, expanded next
     parent_valid: torch.Tensor  # [Q, P] bool
     visited_ids: torch.Tensor  # [Q, MI*P] i32 — expansion order, INVALID padding
+    bloom: Optional[torch.Tensor]  # [Q, BF + 1] u8 (ops/bloom.py) or None (exact)
     active: torch.Tensor  # [Q] bool
     it: int  # host-side iteration counter
     n_expanded: torch.Tensor  # int64 scalar — total parents expanded
@@ -78,33 +85,32 @@ class SearchStats:
 
 
 def check_params(params) -> None:
-    """Raise on the SearchParams that the port's traversal does not take."""
-    if params.visited_mode != "exact":
-        raise NotImplementedError(
-            "visited_mode='bloom' is not ported yet (ROADMAP Queue 1 item 15)"
-        )
+    """Raise on the SearchParams that the port's traversal does not take.
+    Both visited modes are served (SearchParams checks the name)."""
     if params.pq_impl != "auto":
         raise ValueError(
             f"pq_impl={params.pq_impl!r} names a JAX kernel; the port picks "
             "its kernel from the index layout and the tensors' device"
         )
-    # ENABLE_GPU_STATS is served: base turns its stage timers on, the HBM
-    # variants report last_stats (api.BANGSearch)
-    if params.capabilities & ~ENABLE_GPU_STATS:
-        raise NotImplementedError(
-            f"capabilities={params.capabilities:#x}: the port serves only "
-            f"ENABLE_GPU_STATS ({ENABLE_GPU_STATS:#x}); ENABLE_CACHE_WARMUP "
-            f"({ENABLE_CACHE_WARMUP:#x}) waits on warmup_touch (ROADMAP Queue 1 "
-            f"item 11)"
+    # both bits are served (api.BANGSearch): ENABLE_GPU_STATS turns base's
+    # stage timers on and gives the HBM variants last_stats;
+    # ENABLE_CACHE_WARMUP runs utils/graph_tools.warmup_touch in bang_alloc
+    served = ENABLE_GPU_STATS | ENABLE_CACHE_WARMUP
+    if params.capabilities & ~served:
+        raise ValueError(
+            f"capabilities={params.capabilities:#x}: the known bits are "
+            f"ENABLE_GPU_STATS ({ENABLE_GPU_STATS:#x}) and ENABLE_CACHE_WARMUP "
+            f"({ENABLE_CACHE_WARMUP:#x})"
         )
 
 
 def init_state(q: int, l: int, max_iters: int, entries: torch.Tensor,
-               entry_dists: torch.Tensor, beam: int = 1) -> TraversalState:
+               entry_dists: torch.Tensor, beam: int = 1,
+               use_bloom: bool = False) -> TraversalState:
     """entries [Q, P<=beam] int32 seed the first P beam slots per query;
     entry_dists (same shape) are their worklist-seed distances. The seeds
     enter the worklist already visited, so paths without re-rank can still
-    return them."""
+    return them. use_bloom: a bloom filter holding the seeds."""
     dev = entries.device
     p = entries.shape[1]
     if p > beam:
@@ -120,20 +126,26 @@ def init_state(q: int, l: int, max_iters: int, entries: torch.Tensor,
     visited = torch.full((q, max_iters * beam), INVALID_ID, dtype=torch.int32,
                          device=dev)
     visited[:, :p] = entries
+    bloom = None
+    if use_bloom:
+        bloom = bloom_insert(new_bloom(q, dev), entries,
+                             torch.ones((q, p), dtype=torch.bool, device=dev))
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     return TraversalState(
-        wl_dist, wl_ids, wl_vis, parents, parent_valid, visited,
+        wl_dist, wl_ids, wl_vis, parents, parent_valid, visited, bloom,
         torch.ones((q,), dtype=torch.bool, device=dev), 1, zero, zero.clone(),
     )
 
 
-def make_step(adj, distance_fn, beam: int = 1):
+def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
     """Build the per-iteration body.
 
     `distance_fn(cand_ids [Q, C], parents [Q, P]) -> [Q, C] f32`. When
     `distance_fn.frontier_fn(parents) -> (cand_ids, dists)` exists (fused
     rows), one call yields both and `adj` is not read: pass None.
-    `adj`: [N, R] int32 tensor (scattered layout) or None."""
+    `adj`: [N, R] int32 tensor (scattered layout) or None. use_bloom: the
+    visited set is the state's bloom filter (updated in place), not the
+    exact mask."""
     frontier_fn = getattr(distance_fn, "frontier_fn", None)
     if adj is not None:
         r = adj.shape[1]
@@ -151,11 +163,17 @@ def make_step(adj, distance_fn, beam: int = 1):
             raw = None
         cand_valid = state.parent_valid.repeat_interleave(r, dim=1)
 
-        new = exact_new_mask(cand, state.wl_ids, state.visited_ids)
+        if use_bloom:
+            pos = bloom_positions(cand, state.bloom.shape[1] - 1)  # query + insert
+            new = ~bloom_query(state.bloom, cand, pos)
+        else:
+            new = exact_new_mask(cand, state.wl_ids, state.visited_ids)
         new = new & cand_valid & state.active[:, None]
         if beam > 1:
             # parents expanded together may share neighbors — keep first lane
             new = new & first_occurrence_mask_blocks(cand, beam)
+        if use_bloom:
+            bloom_insert(state.bloom, cand, new, pos)
         if raw is None:
             raw = distance_fn(cand, state.parents)
         dist = torch.where(new, raw, torch.full_like(raw, float("inf")))
@@ -171,8 +189,8 @@ def make_step(adj, distance_fn, beam: int = 1):
             parent_valid, parents, torch.full_like(parents, INVALID_ID)
         )
         return TraversalState(
-            wl_dist, wl_ids, wl_vis, parents, parent_valid, visited, active,
-            state.it + 1,
+            wl_dist, wl_ids, wl_vis, parents, parent_valid, visited, state.bloom,
+            active, state.it + 1,
             state.n_expanded + state.parent_valid.sum(),
             state.n_dist_comps + new.sum(),
         )
@@ -182,15 +200,16 @@ def make_step(adj, distance_fn, beam: int = 1):
 
 def run_traversal(adj, distance_fn, medoid: int, q: int, l: int,
                   max_iters: int, beam: int, device, entry_ids=None,
-                  entry_dists=None) -> TraversalState:
+                  entry_dists=None, use_bloom: bool = False) -> TraversalState:
     """Run the traversal; returns the final state. Stops after `max_iters`
     iterations or when no query has an unvisited worklist entry left.
+    use_bloom: filter with the bloom visited set (ops/bloom.py).
 
     By default every query enters at the shared `medoid`. entry_ids [Q] or
     [Q, P<=beam] int32 (sampled-entry mode, models/entry.py) give per-query
     entries instead, [Q, P] seeding P beam slots; entry_dists (same shape)
     are their worklist-seed distances and are required with them."""
-    step = make_step(adj, distance_fn, beam)
+    step = make_step(adj, distance_fn, beam, use_bloom)
     if entry_ids is None:
         entry = torch.full((q, 1), medoid, dtype=torch.int32, device=device)
         # the entry's distance: distance_fn's seed_fn when it has one (all
@@ -201,7 +220,7 @@ def run_traversal(adj, distance_fn, medoid: int, q: int, l: int,
         if entry_dists is None:
             raise ValueError("entry_ids requires entry_dists")
         entry = (entry_ids if entry_ids.ndim == 2 else entry_ids[:, None]).to(torch.int32)
-    state = init_state(q, l, max_iters, entry, entry_dists, beam)
+    state = init_state(q, l, max_iters, entry, entry_dists, beam, use_bloom)
     while state.it < max_iters and bool(state.active.any()):
         state = step(state)
     return state

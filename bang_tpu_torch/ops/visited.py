@@ -2,13 +2,13 @@
 
 A candidate is new iff it appears in neither the current worklist nor the
 list of already-expanded parents: an exact membership test with no false
-positives. The reference (BANG) keeps a per-query bloom filter instead; the
-bloom port is ROADMAP Queue 1 item 15.
+positives. The reference (BANG) keeps a per-query bloom filter instead,
+ported as ops/bloom.py (`visited_mode="bloom"`).
 
 Re-entry semantics are kept on purpose: a node that entered the worklist
 but was evicted before it was expanded may re-enter later (it is in neither
-list). The bloom filter would block that; matching the JAX package here
-keeps iteration counts comparable.
+list). The bloom filter blocks that; the JAX package's two modes differ the
+same way, which keeps iteration counts comparable with it in each mode.
 """
 
 from __future__ import annotations

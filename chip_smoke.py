@@ -88,6 +88,33 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 (kernel ms by name and by step stage, the code gather's ms,
                 the card's busy share over the union of kernel intervals on
                 all streams, peak memory).
+ 11. bloom    — visited_mode="bloom" (ops/bloom.py, plain PyTorch) on each
+                search of the bundle: in-memory fused L in {64, 128, 256}
+                (K2), in-memory scattered L=512 (K1), exact fused L in {30,
+                60, 100} (K3), base L in {30, 90} (K1 once a device step),
+                each run in the order exact, bloom, bloom, exact: each L's
+                recall@10 >= the exact mode's at that L - 1.5 (the JAX
+                package's bar, tests/test_large_l.py) and >= 90 at the best
+                L, the same ids in both runs of a mode; walls, iterations
+                and peak memory beside the exact mode's. Then the fused
+                L=128 profile in bloom mode, the hash, query and insert in
+                profiler ranges.
+ 12. warm-up and serving — ENABLE_CACHE_WARMUP on the three variants: the
+                touched count equal to the BFS count from the medoid, the ids
+                identical to a call without the bit. SearchServer("inmemory",
+                batch_size=128) over the 10K queries: ids and distances
+                identical to bang_query at Q=128, latency percentiles. The
+                latency probes: measure_device_batch_latency at 128 queries
+                (in-memory, exact) and measure_base_device_step_ms at 1,250
+                (exact, bloom, bloom, exact), each launching its variant's
+                kernel.
+ 13. streaming — bench.py::streaming_row's point: StreamingIndex from empty
+                over 200K x 128 f32 clustered points (seed 11, 200 clusters),
+                R=32, l_build 32, inserts of 4,096; search at L=64, beam 2,
+                extra_iters 24 over 2,048 queries; 10% churn (delete,
+                consolidate(batch=4096), re-insert 4,096 into freed slots):
+                recall@10 over the live set >= 90 before and after the churn,
+                no kernel launched.
 Each probe script and each search phase zeroes every launch count just
 before it and reads them just after: the kernels of its path must have
 launched and no other. The second-to-last line is a JSON object describing
@@ -121,6 +148,16 @@ RECALL_TARGET = 90.0
 # read into RAM as in the reference's configuration
 BASE_L_SWEEP = (30, 45, 60, 90)
 BASE_BEAM, BASE_EXTRA, BASE_PIPELINE = 2, 16, 8
+# phase 11: the Ls searched in bloom mode, and the JAX package's bar for the
+# recall bloom may lose against the exact mask at the same L
+BLOOM_L = {"inmemory": (64, 128, 256), "exactdistance": (30, 60, 100)}
+BLOOM_BASE_L = (30, 90)
+BLOOM_RECALL_SLACK = 1.5
+# phase 12: each variant's L for the warm-up and the probes; the server's batch
+WARMUP_L = {"inmemory": 64, "exactdistance": 30, "base": 30}
+SERVER_BATCH = 128
+# phase 13: bench.py::streaming_row's point (bench.py:628-717)
+STREAM_N, STREAM_R, STREAM_Q, STREAM_CHUNK = 200_000, 32, 2048, 4096
 
 # (label, Q, N rows, R, m, beam, ids drawn below): the main path's shape,
 # then the other shapes the kernels must take.
@@ -688,9 +725,10 @@ def _check_output(ids, dists, queries, vectors, n):
 
 
 def run_search(prefix, dev, variant, l_values, fused_frontier=None,
-               entry_mode="medoid"):
+               entry_mode="medoid", visited_mode="exact"):
     """BANGSearch(variant) over `l_values` at bench.py's beam and
-    extra_iters; one row per L (with the returned ids)."""
+    extra_iters; one row per L (with the returned ids and the query call's
+    peak memory)."""
     from bang_tpu_torch.api import BANGSearch
     from bang_tpu_torch.formats.bin_io import load_bin, load_truthset
     from bang_tpu_torch.formats.graph import load_graph_index
@@ -706,29 +744,30 @@ def run_search(prefix, dev, variant, l_values, fused_frontier=None,
     ix = s._index
     fused = ix.fused_rows is not None or ix.fused_vec_rows is not None
     layout = "fused" if fused else "scattered"
-    label = f"{variant} {layout} {entry_mode}"
+    label = f"{variant} {layout} {entry_mode} {visited_mode}"
     log(f"bang_load {variant} {layout} layout in {time.perf_counter() - t0:.1f}s")
     rows = []
     for L in l_values:
         s.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra,
-                                entry_mode=entry_mode)
+                                entry_mode=entry_mode, visited_mode=visited_mode)
         s.bang_alloc(len(queries))
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         ids, dists = s.bang_query(queries)  # host arrays: the device is done
         wall = time.perf_counter() - t0
         _check_output(ids, dists, queries, vectors, len(vectors))
         row = {"search": label, "L": L,
                "recall": calculate_recall(gt_ids, ids, K, gt_dists),
-               "iters": s.last_stats.iters, "wall_s": wall,
-               "qps": len(queries) / wall, "ids": ids}
+               "iters": s.last_stats.iters, "dist_comps": s.last_stats.n_dist_comps,
+               "wall_s": wall, "qps": len(queries) / wall, "ids": ids,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         log(f"search {label} L={L} recall@10={row['recall']:.2f} "
-            f"iters={row['iters']} wall={wall:.4f}s qps={row['qps']:.1f}")
+            f"iters={row['iters']} dist_comps={row['dist_comps']} wall={wall:.4f}s "
+            f"qps={row['qps']:.1f} peak={row['peak_gb']:.2f}GB")
         rows.append(row)
     s.bang_unload()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -737,7 +776,8 @@ def run_search(prefix, dev, variant, l_values, fused_frontier=None,
 # profiler ties no kernel launched through ctypes (K2, K3) to a range: their
 # times are in the per-kernel rows.
 PROFILE_STAGES = ("exact_new_mask", "first_occurrence_mask_blocks", "merge_worklist",
-                  "select_parents_beam")
+                  "select_parents_beam", "bloom_positions", "bloom_query", "bloom_insert")
+BLOOM_STAGES = PROFILE_STAGES[-3:]
 
 
 @contextlib.contextmanager
@@ -768,14 +808,17 @@ def _traversal_stages(mask, traversal=None):
             setattr(traversal, name, fn)
 
 
-def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True):
+def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
+                   visited_mode="exact"):
     """BANGSearch(variant) at L on the layout `fused_frontier` picks (the
     fused one by default), with the sorted visited mask and, when `dense`,
-    again with its dense form (the JAX expression): each three timed calls,
-    then one under torch.profiler. Prints the device ms of each kernel name
-    and of each traversal stage (PROFILE_STAGES) summed over the call, the
-    kernels' total against the profiled call's wall (the device's busy
-    share) and the peak memory of that call."""
+    again with its dense form (the JAX expression), or with the bloom
+    filter: each three timed calls, then one under torch.profiler. Prints
+    the device ms of each kernel name and of each traversal stage
+    (PROFILE_STAGES) summed over the call, the kernels' total against the
+    profiled call's wall (the device's busy share) and the peak memory of
+    that call; in bloom mode also the filter's ms a step (hash, query and
+    insert)."""
     from torch.profiler import ProfilerActivity, profile
 
     from bang_tpu_torch.api import BANGSearch
@@ -789,13 +832,17 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True):
     ix = s._index
     layout = ("fused" if ix.fused_rows is not None or ix.fused_vec_rows is not None
               else "scattered")
-    s.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra)
+    s.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra,
+                            visited_mode=visited_mode)
     s.bang_alloc(len(queries))
-    masks = [("sorted", visited.exact_new_mask)]
-    if dense:
-        masks.append(("dense", visited.exact_new_mask_dense))
+    if visited_mode == "bloom":  # the mask is not called
+        masks = [("bloom filter", visited.exact_new_mask)]
+    else:
+        masks = [("sorted mask", visited.exact_new_mask)]
+        if dense:
+            masks.append(("dense mask", visited.exact_new_mask_dense))
     for mask_name, mask in masks:
-        label = f"profile {variant} {layout} L={L} {mask_name} mask"
+        label = f"profile {variant} {layout} L={L} {mask_name}"
         with _traversal_stages(mask):
             walls = []
             for _ in range(3):
@@ -812,9 +859,16 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True):
         peak = torch.cuda.max_memory_allocated()
         log(f"{label}: {s.last_stats.iters} iterations; walls of 3 timed calls "
             + " / ".join(f"{w:.4f}" for w in walls) + f" s; profiled call {wall:.4f} s")
-        total = _read_profile(prof, label, PROFILE_STAGES)[0]
+        total, stages, _ = _read_profile(prof, label, PROFILE_STAGES)
         log(f"{label}: kernels {total:.3f} ms in a {wall * 1e3:.3f} ms wall, busy "
             f"{total / (wall * 1e3):.1%}; peak {peak / 1e9:.2f} GB")
+        if visited_mode == "bloom":
+            ms = sum(stages.get(name, (0.0, 0))[0] for name in BLOOM_STAGES)
+            steps = stages.get("bloom_query", (0.0, 0))[1]
+            if not steps:
+                raise AssertionError(f"{label}: the bloom filter was never queried")
+            log(f"{label}: bloom hash + query + insert {ms:.3f} ms over {steps} "
+                f"steps, {ms / steps:.4f} ms a step")
     s.bang_unload()
     torch.cuda.empty_cache()
 
@@ -865,10 +919,11 @@ def _busy_ms(prof, stage_names):
 
 
 def run_base(prefix, dev, l_values, n_pipeline_batches=BASE_PIPELINE,
-             entry_mode="medoid"):
+             entry_mode="medoid", visited_mode="exact"):
     """BANGSearch("base") over `l_values` at bench.py::sweep_base's beam and
     extra_iters, the graph read into RAM, ENABLE_GPU_STATS on; one row per L
-    (the returned ids, device steps, readback waits, stage ms). Returns
+    (the returned ids, device steps, readback waits, stage ms, the query
+    call's peak memory). Returns
     (rows, steps): every device step of these calls, the warm-ups of
     bang_alloc included."""
     from bang_tpu_torch.api import BANGSearch
@@ -883,18 +938,19 @@ def run_base(prefix, dev, l_values, n_pipeline_batches=BASE_PIPELINE,
     s.bang_load(prefix, mmap=False, n_pipeline_batches=n_pipeline_batches)
     searcher = s._searcher
     vectors = searcher.raw[:, : searcher.vec_bytes]  # u8 data: the vectors' bytes
-    label = f"base pipeline={n_pipeline_batches} {entry_mode}"
+    label = f"base pipeline={n_pipeline_batches} {entry_mode} {visited_mode}"
     log(f"bang_load base in {time.perf_counter() - t0:.1f}s: "
         f"{searcher.raw.nbytes / 1e6:.1f} MB of records in host RAM, "
         f"{searcher.codes.numel() / 1e6:.1f} MB of codes on the card")
     rows, steps = [], 0
     for L in l_values:
         s.bang_set_searchparams(K, L, beam_width=BASE_BEAM, extra_iters=BASE_EXTRA,
-                                entry_mode=entry_mode, capabilities=ENABLE_GPU_STATS)
+                                entry_mode=entry_mode, visited_mode=visited_mode,
+                                capabilities=ENABLE_GPU_STATS)
         s.bang_alloc(len(queries))
         steps += searcher.last_n_steps
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         ids, dists = s.bang_query(queries)  # host arrays: the device is done
         wall = time.perf_counter() - t0
@@ -904,15 +960,15 @@ def run_base(prefix, dev, l_values, n_pipeline_batches=BASE_PIPELINE,
                "recall": calculate_recall(gt_ids, ids, K, gt_dists),
                "steps": searcher.last_n_steps, "d2h": searcher.last_n_d2h,
                "stages": dict(searcher.timers.ms), "wall_s": wall,
-               "qps": len(queries) / wall, "ids": ids}
+               "qps": len(queries) / wall, "ids": ids,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         log(f"search {label} L={L} recall@10={row['recall']:.2f} "
             f"steps={row['steps']} d2h waits={row['d2h']} wall={wall:.4f}s "
-            f"qps={row['qps']:.1f}; stage ms: "
+            f"qps={row['qps']:.1f} peak={row['peak_gb']:.2f}GB; stage ms: "
             + ", ".join(f"{k} {v:.3f}" for k, v in row["stages"].items()))
         rows.append(row)
     s.bang_unload()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     return rows, steps
 
 
@@ -1072,6 +1128,288 @@ def phase_base(prefix, dev, totals):
     return best
 
 
+def _against_exact(what, exact_runs, bloom_runs):
+    """Each L's bloom rows beside its exact-mode rows, two runs of each
+    made in the order exact, bloom, bloom, exact: recall at most
+    BLOOM_RECALL_SLACK below the exact mask's, >= RECALL_TARGET at the bloom
+    sweep's best L, and the same ids in both runs of a mode."""
+    steps = "steps" if "steps" in exact_runs[0][0] else "iters"
+    for i, ex in enumerate(exact_runs[0]):
+        bl = bloom_runs[0][i]
+        for runs in (exact_runs, bloom_runs):
+            if not np.array_equal(runs[0][i]["ids"], runs[1][i]["ids"]):
+                raise AssertionError(f"{what} L={ex['L']}: two runs of one mode differ")
+        walls = [runs[j][i]["wall_s"] for runs, j in
+                 ((exact_runs, 0), (bloom_runs, 0), (bloom_runs, 1), (exact_runs, 1))]
+        extra = ("" if steps == "steps" else
+                 f", dist_comps {bl['dist_comps']} / {ex['dist_comps']}")
+        log(f"bloom vs exact {what} L={ex['L']}: recall@10 {bl['recall']:.2f} / "
+            f"{ex['recall']:.2f}, {steps} {bl[steps]} / {ex[steps]}{extra}, peak "
+            f"{bl['peak_gb']:.2f} / {ex['peak_gb']:.2f} GB; walls exact, bloom, bloom, "
+            "exact " + " / ".join(f"{w:.4f}" for w in walls) + " s")
+        if bl["recall"] < ex["recall"] - BLOOM_RECALL_SLACK:
+            raise AssertionError(f"{what} bloom L={ex['L']}: recall@10 "
+                                 f"{bl['recall']:.2f} below the exact mask's "
+                                 f"{ex['recall']:.2f} - {BLOOM_RECALL_SLACK}")
+    _best(bloom_runs[0], f"{what} bloom")
+
+
+def _base_rows(prefix, dev, visited_mode, label):
+    """Base over BLOOM_BASE_L in `visited_mode`, K1 checked once a step."""
+    rows, steps = run_base(prefix, dev, BLOOM_BASE_L, visited_mode=visited_mode)
+    _k1_per_step(label, steps)
+    return rows
+
+
+def phase_bloom(prefix, dev, totals):
+    """Phase 11: the searches of phases 5-7 and 10 in bloom mode, each beside
+    the exact mode in the order exact, bloom, bloom, exact, every call
+    counted as its exact-mode phase; then the fused L=128 profile in bloom
+    mode."""
+    searches = (
+        ("inmemory fused", {"frontier_lookup"}, lambda mode: run_search(
+            prefix, dev, "inmemory", BLOOM_L["inmemory"], visited_mode=mode)),
+        ("inmemory scattered", {"pq_lookup"}, lambda mode: run_search(
+            prefix, dev, "inmemory", (SCATTERED_PROFILE_L,), fused_frontier=False,
+            visited_mode=mode)),
+        ("exactdistance fused", {"exact_frontier"}, lambda mode: run_search(
+            prefix, dev, "exactdistance", BLOOM_L["exactdistance"], visited_mode=mode)),
+        ("base", {"pq_lookup"}, lambda mode: _base_rows(prefix, dev, mode,
+                                                        f"search base {mode}")),
+    )
+    for what, launched, run in searches:
+        runs = {"exact": [], "bloom": []}
+        for mode in ("exact", "bloom", "bloom", "exact"):
+            runs[mode].append(counted(f"search {what} {mode}", launched,
+                                      lambda: run(mode), totals))
+        _against_exact(what, runs["exact"], runs["bloom"])
+    profile_search(prefix, dev, "inmemory", PROFILE_L, dense=False, visited_mode="bloom")
+
+
+def _beam_extra(variant):
+    return BEAM_EXTRA.get(variant, (BASE_BEAM, BASE_EXTRA))
+
+
+def _warmup(prefix, dev, variant, queries):
+    """BANGSearch(variant) at WARMUP_L: one bang_alloc + query without
+    ENABLE_CACHE_WARMUP, one with it. Returns (touched, the two bang_alloc
+    seconds, the two results)."""
+    from bang_tpu_torch.api import BANGSearch
+    from bang_tpu_torch.constants import ENABLE_CACHE_WARMUP
+
+    beam, extra = _beam_extra(variant)
+    s = BANGSearch(variant, device=dev)
+    s.bang_load(prefix, **({"mmap": False, "n_pipeline_batches": BASE_PIPELINE}
+                           if variant == "base" else {}))
+    secs, results = [], []
+    for caps in (0, ENABLE_CACHE_WARMUP):
+        s.bang_set_searchparams(K, WARMUP_L[variant], beam_width=beam,
+                                extra_iters=extra, capabilities=caps)
+        t0 = time.perf_counter()
+        s.bang_alloc(len(queries))
+        secs.append(time.perf_counter() - t0)
+        results.append(s.bang_query(queries))
+    s.bang_unload()
+    torch.cuda.empty_cache()
+    return s.warmup_touched, secs, results
+
+
+def _serve(prefix, dev, queries, gt_ids, gt_dists):
+    """SearchServer("inmemory", SERVER_BATCH) over `queries` against one
+    BANGSearch warmed up at the same Q."""
+    from bang_tpu_torch.api import BANGSearch
+    from bang_tpu_torch.harness.serving import SearchServer
+    from bang_tpu_torch.utils.config import SearchParams
+    from bang_tpu_torch.utils.recall import calculate_recall
+
+    beam, extra = _beam_extra("inmemory")
+    L = WARMUP_L["inmemory"]
+    server = SearchServer(prefix, "inmemory", batch_size=SERVER_BATCH,
+                          params=SearchParams(L=L, k=K, beam_width=beam, extra_iters=extra),
+                          device=dev)
+    t0 = time.perf_counter()
+    ids, dists = server.query(queries)
+    wall = time.perf_counter() - t0
+    pct, n = server.latency_percentiles(), len(server.latencies_ms)
+    server.close()
+    ref = BANGSearch("inmemory", device=dev)
+    ref.bang_load(prefix)
+    ref.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra)
+    ref.bang_alloc(SERVER_BATCH)
+    r_ids, r_dists = ref.bang_query(queries)
+    ref.bang_unload()
+    torch.cuda.empty_cache()
+    if not (np.array_equal(ids, r_ids) and np.array_equal(dists, r_dists)):
+        raise AssertionError(f"SearchServer differs from bang_query at Q={SERVER_BATCH} "
+                             f"on {int((ids != r_ids).any(1).sum())} queries")
+    log(f"serve inmemory L={L} batch {SERVER_BATCH}: {n} requests, ids and distances "
+        f"identical to bang_query; recall@10 "
+        f"{calculate_recall(gt_ids, ids, K, gt_dists):.2f}; latency ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in pct.items())
+        + f"; {len(queries)} queries in {wall:.3f} s, qps {len(queries) / wall:.1f}")
+
+
+def phase_warmup_serving(prefix, dev, totals):
+    """Phase 12: ENABLE_CACHE_WARMUP on the three variants, the SearchServer,
+    and the latency probes, each counted."""
+    from bang_tpu_torch.formats.bin_io import load_bin, load_truthset
+    from bang_tpu_torch.formats.graph import load_graph_index
+    from bang_tpu_torch.harness.serving import (
+        measure_base_device_step_ms,
+        measure_device_batch_latency,
+    )
+    from bang_tpu_torch.models.base import BaseVariantSearcher
+    from bang_tpu_torch.models.index import device_index_from_files
+    from bang_tpu_torch.utils.config import SearchParams
+    from bang_tpu_torch.utils.graph_tools import bfs_from
+
+    queries = load_bin(prefix + "_query.bin", np.uint8)
+    gt_ids, gt_dists = load_truthset(prefix + "_gt.bin")
+    graph = load_graph_index(prefix)
+    t0 = time.perf_counter()
+    reach = len(bfs_from(graph.adj, graph.medoid, max_nodes=1_000_000))
+    log(f"warmup: the BFS from the medoid reaches {reach} of {graph.adj.shape[0]} "
+        f"nodes (host BFS {time.perf_counter() - t0:.2f}s)")
+    del graph
+    for variant, launched in (("inmemory", {"frontier_lookup"}),
+                              ("exactdistance", {"exact_frontier"}),
+                              ("base", {"pq_lookup"})):
+        touched, secs, (want, got) = counted(
+            f"warmup {variant}", launched, lambda: _warmup(prefix, dev, variant, queries),
+            totals)
+        if touched != reach:
+            raise AssertionError(f"warmup {variant}: touched {touched} nodes, the BFS "
+                                 f"from the medoid reaches {reach}")
+        if not (np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1])):
+            raise AssertionError(f"warmup {variant}: ids or distances differ from the "
+                                 "call without ENABLE_CACHE_WARMUP")
+        log(f"warmup {variant} L={WARMUP_L[variant]}: touched {touched} nodes; "
+            f"bang_alloc {secs[0]:.3f} s without the bit, {secs[1]:.3f} s with it; "
+            "ids and distances identical")
+
+    counted("serve inmemory", {"frontier_lookup"},
+            lambda: _serve(prefix, dev, queries, gt_ids, gt_dists), totals)
+
+    for variant, launched in (("inmemory", {"frontier_lookup"}),
+                              ("exactdistance", {"exact_frontier"})):
+        beam, extra = _beam_extra(variant)
+        params = SearchParams(L=WARMUP_L[variant], k=K, beam_width=beam,
+                              extra_iters=extra)
+
+        def probe():
+            index = device_index_from_files(prefix, dev, variant)
+            return measure_device_batch_latency(index, queries[:SERVER_BATCH], params,
+                                                variant)
+
+        ms = counted(f"probe {variant} batch latency", launched, probe, totals)
+        log(f"probe {variant} L={WARMUP_L[variant]} Q={SERVER_BATCH}: {ms:.4f} ms a "
+            "search (CUDA events over 10 searches, the host loop's gaps included)")
+        torch.cuda.empty_cache()
+    q_b = Q // BASE_PIPELINE
+    searcher = BaseVariantSearcher(prefix, BASE_PIPELINE, mmap=False, device=dev)
+    for visited_mode in ("exact", "bloom", "bloom", "exact"):
+        params = SearchParams(L=WARMUP_L["base"], k=K, beam_width=BASE_BEAM,
+                              extra_iters=BASE_EXTRA, visited_mode=visited_mode)
+        n_chain = 17
+        ms = counted(f"probe base step {visited_mode}", {"pq_lookup"},
+                     lambda: measure_base_device_step_ms(searcher, queries[:q_b], params,
+                                                         n_chain), totals)
+        _k1_per_step(f"probe base step {visited_mode}", n_chain + 1)
+        log(f"probe base step {visited_mode} Q={q_b}: {ms:.4f} ms a step (CUDA events "
+            f"over {n_chain} steps)")
+    del searcher
+    torch.cuda.empty_cache()
+
+
+def _live_recall(ids, queries, pts, live_ids, dev, alias=None):
+    """recall@10 of `ids` against the exact top 10 of the live points (on
+    the card, blocks of 256 queries), slot ids mapped through `alias`
+    (re-inserted points land in recycled slots), as bench.py::streaming_row."""
+    sub = torch.as_tensor(pts[live_ids], device=dev)
+    sn = (sub * sub).sum(-1)
+    live = torch.as_tensor(live_ids, device=dev)
+    gt = []
+    for s in range(0, len(queries), 256):
+        blk = torch.as_tensor(queries[s : s + 256], device=dev)
+        d = (blk * blk).sum(-1, keepdim=True) + sn[None, :] - 2.0 * (blk @ sub.T)
+        gt.append(live[torch.topk(d, K, dim=1, largest=False).indices].cpu().numpy())
+    gt = np.concatenate(gt)
+    if alias:
+        ids = np.vectorize(lambda i: alias.get(int(i), int(i)))(ids)
+    hits = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(ids, gt))
+    return 100.0 * hits / gt.size
+
+
+def phase_streaming(dev, totals):
+    """Phase 13 (no kernel may launch): grow, search, churn, search."""
+    def run():
+        from bang_tpu_torch.formats.synthetic import make_clustered_data
+        from bang_tpu_torch.models.streaming import StreamingIndex
+        from bang_tpu_torch.utils.config import SearchParams
+
+        n, q = STREAM_N, STREAM_Q
+        rng = np.random.default_rng(11)
+        pts = make_clustered_data(n, D, n_clusters=max(64, n // 1000), dtype=np.float32,
+                                  seed=11)
+        queries = (pts[rng.integers(0, n, q)]
+                   + rng.normal(0, 0.05, (q, D)).astype(np.float32))
+        ix = StreamingIndex(capacity=n + STREAM_CHUNK, dim=D, r=STREAM_R, l_build=32,
+                            device=dev)
+        t0 = time.perf_counter()
+        ix.insert(pts[:STREAM_CHUNK])  # the doubling ramp, outside the timed part
+        torch.cuda.synchronize()
+        log(f"streaming: first {STREAM_CHUNK} inserts (the ramp) "
+            f"{time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        for s in range(STREAM_CHUNK, n, STREAM_CHUNK):
+            ix.insert(pts[s : s + STREAM_CHUNK])
+        torch.cuda.synchronize()
+        t_ins = time.perf_counter() - t0
+        params = SearchParams(L=64, k=K, extra_iters=24, beam_width=2)
+        ix.search(queries[:256], params)  # warm
+        t0 = time.perf_counter()
+        ids, _ = ix.search(queries, params)
+        t_pre = time.perf_counter() - t0
+        pre = _live_recall(ids, queries, pts, np.arange(n), dev)
+        log(f"streaming: {n - STREAM_CHUNK} inserts in {t_ins:.3f} s "
+            f"({(n - STREAM_CHUNK) / t_ins:.1f} inserts/s); search {q} queries "
+            f"{t_pre:.4f} s (qps {q / t_pre:.1f}), recall@10 {pre:.2f}")
+
+        victims = rng.choice(n, n // 10, replace=False).astype(np.int32)
+        ix.delete(victims)
+        t0 = time.perf_counter()
+        repaired = ix.consolidate(batch=STREAM_CHUNK)
+        t_cons = time.perf_counter() - t0
+        back = victims[:STREAM_CHUNK]
+        t0 = time.perf_counter()
+        new_ids = ix.insert(pts[back])  # into the freed slots
+        torch.cuda.synchronize()
+        t_back = time.perf_counter() - t0
+        if set(new_ids.tolist()) - set(victims.tolist()):
+            raise AssertionError("streaming: re-inserted points outside the freed slots")
+        alias = {int(s): int(o) for s, o in zip(new_ids, back)}
+        t0 = time.perf_counter()
+        ids, _ = ix.search(queries, params)
+        t_post = time.perf_counter() - t0
+        live = np.ones(n, bool)
+        live[victims] = False
+        live[back] = True
+        post = _live_recall(ids, queries, pts, np.flatnonzero(live), dev, alias)
+        log(f"streaming: delete {len(victims)}, consolidate {t_cons:.3f} s "
+            f"({repaired} rows repaired), re-insert {len(back)} in {t_back:.3f} s; "
+            f"search {t_post:.4f} s (qps {q / t_post:.1f}), recall@10 {post:.2f}; "
+            f"n_live {ix.n_live}")
+        for what, r in (("before", pre), ("after", post)):
+            if r < RECALL_TARGET:
+                raise AssertionError(f"streaming: recall@10 {r:.2f} {what} the churn "
+                                     f"< {RECALL_TARGET}")
+        if ix.n_live != n - len(victims) + len(back):
+            raise AssertionError(f"streaming: n_live {ix.n_live}")
+
+    counted("streaming", set(), run, totals)
+    torch.cuda.empty_cache()
+
+
 def counted(label, launched, fn, totals):
     """Run one search phase with every launch count zeroed just before and
     read just after; fail unless exactly the kernels named in `launched`
@@ -1098,8 +1436,8 @@ def _best(rows, what):
 
 
 def search_phases(dev, totals):
-    """Phases 4-10 on `dev`; adds the launch counts of 5-10 to `totals` (not
-    those of the profiled calls after phases 5, 6, 7 and 10)."""
+    """Phases 4-13 on `dev`; adds the launch counts of 5-13 to `totals` (not
+    those of the profiled calls after phases 5, 6, 7, 10 and 11)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         prefix = os.path.join(tmp, "synth1m")
         build_bundle(prefix, dev)
@@ -1153,11 +1491,14 @@ def search_phases(dev, totals):
                 raise AssertionError(f"{rows[-1]['search']}: recall@10 "
                                      f"{rows[-1]['recall']:.2f} < {RECALL_TARGET}")
         best_b = phase_base(prefix, dev, totals)
+        phase_bloom(prefix, dev, totals)
+        phase_warmup_serving(prefix, dev, totals)
+    phase_streaming(dev, totals)
     log(f"ok: inmemory best L={best['L']} recall@10 {best['recall']:.2f}, "
         f"scattered ids and iterations identical; exactdistance best "
         f"L={best_e['L']} recall@10 {best_e['recall']:.2f}, scattered ids identical; "
         f"base best L={best_b['L']} recall@10 {best_b['recall']:.2f}, pipelined ids "
-        f"identical to serial")
+        f"identical to serial; bloom, warm-up, serving and streaming checked")
 
 
 def main():

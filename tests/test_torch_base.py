@@ -289,15 +289,19 @@ def test_api_base_lifecycle_and_stage_timers(tiny_index):
 
 
 def test_api_base_refusals_name_roadmap(tiny_index):
+    """Bloom (ROADMAP item 15) and ENABLE_CACHE_WARMUP (item 11), once
+    refused, are served: each returns [Q, k] results. A JAX kernel name in
+    pq_impl and the card without a card still raise."""
     prefix, queries, _, _ = _bundle(tiny_index)
     s = BANGSearch("base", device="cpu")
     s.bang_load(prefix)
     s.bang_set_searchparams(10, 16, visited_mode="bloom")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-        s.bang_query(queries[:2])
+    ids, dists = s.bang_query(queries[:2])
+    assert ids.shape == (2, 10) and np.isfinite(dists).all()
     s.bang_set_searchparams(10, 16, capabilities=ENABLE_CACHE_WARMUP)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        s.bang_alloc(4)
+    s.bang_alloc(4)
+    assert s.warmup_touched > 0.99 * len(s._searcher.raw)
+    assert s.bang_query(queries[:2])[0].shape == (2, 10)
     s.bang_set_searchparams(10, 16, pq_impl="pallas")
     with pytest.raises(ValueError, match="pq_impl"):
         s.bang_query(queries[:2])

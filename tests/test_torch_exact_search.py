@@ -208,8 +208,8 @@ def test_layout_options_and_refusals(tiny_uint8_index, tiny_index):
         device_index_from_files(prefix, "cpu", "inmemory", neighbor_vectors=True)
     index = device_index_from_files(prefix, "cpu", "exactdistance")
     queries = load_bin_auto(prefix + "_query.bin", np.float32)[:4]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        search_exact(index, queries, SearchParams(L=16, visited_mode="bloom"))
+    ids, dists, _ = search_exact(index, queries, SearchParams(L=16, visited_mode="bloom"))
+    assert ids.shape == (4, 10) and torch.isfinite(dists).all()  # bloom is served
     with pytest.raises(ValueError, match="pq_impl"):
         search_exact(index, queries, SearchParams(L=16, pq_impl="pallas_dma"))
     # "default" is a TPU matrix-unit setting: the port computes full f32

@@ -124,19 +124,20 @@ def test_exact_new_mask_bit_identical(q, c, l, mi, case):
     assert not got[torch.from_numpy(cand == INVALID)].any()  # INVALID is never new
 
 
-@pytest.mark.parametrize("caps", [0, 1, 2, 3])
+@pytest.mark.parametrize("caps", [0, 1, 2, 3, 4])
 def test_check_params_refuses_capabilities(caps):
-    """ENABLE_GPU_STATS (1) is served, as in the JAX package; any set
-    ENABLE_CACHE_WARMUP bit (2, 3) raises, naming the ROADMAP item that will
-    serve it."""
+    """ENABLE_GPU_STATS (1) and ENABLE_CACHE_WARMUP (2) are served, alone
+    and together, as in the JAX package; a bit past them (4) raises, naming
+    the known ones. Both visited modes pass."""
     from bang_tpu_torch.models.traversal import check_params
     from bang_tpu_torch.utils.config import SearchParams
 
     params = SearchParams(L=16, capabilities=caps)
-    if caps in (0, 1):
+    if caps <= 3:
         check_params(params)
+        check_params(SearchParams(L=16, capabilities=caps, visited_mode="bloom"))
         return
-    with pytest.raises(NotImplementedError, match="capabilities.*ROADMAP Queue 1 item 11"):
+    with pytest.raises(ValueError, match="capabilities=0x4.*ENABLE_CACHE_WARMUP"):
         check_params(params)
 
 

@@ -209,11 +209,23 @@ def test_api_returns_int64_and_rejects_unported(fused64_index):
     assert BANGSearch("exactdistance", device="cpu").variant == "exactdistance"
     with pytest.raises(ValueError, match="unknown variant"):
         BANGSearch("exact", device="cpu")
-    s.bang_set_searchparams(10, 16, visited_mode="bloom")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.bang_query(queries[:2])
+    s.bang_set_searchparams(10, 16, visited_mode="bloom")  # served since item 15
+    assert s.bang_query(queries[:2])[0].shape == (2, 10)
     s.bang_set_searchparams(10, 16, entry_mode="sampled")
     assert s.bang_query(queries[:2])[0].shape == (2, 10)
+
+
+def test_default_variant_matches_jax():
+    """Both facades default to the billion-scale "base" variant."""
+    import inspect
+
+    from bang_tpu.api import BANGSearch as JaxBANGSearch
+
+    def default(cls):
+        return inspect.signature(cls.__init__).parameters["variant"].default
+
+    assert default(BANGSearch) == default(JaxBANGSearch) == "base"
+    assert BANGSearch(device="cpu").variant == "base"
 
 
 def test_rerank_topk_breaks_ties_lowest_index_first():

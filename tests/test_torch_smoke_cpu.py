@@ -60,9 +60,24 @@ with tempfile.TemporaryDirectory() as tmp:
     assert ids.dtype == np.int64 and ids.shape == (5, 10), ids.shape
     assert native.library_path().parent == native.BUILD_DIR and native.library_path().exists()
     assert b._searcher.timers.ms["host_gather"] > 0
+    # bloom on base and inmemory, the BFS warm-up, one streaming insert + search
+    queries = load_bin(info["prefix"] + "_query.bin", np.float32)
+    for engine in (b, s):
+        engine.bang_set_searchparams(10, 16, beam_width=2, visited_mode="bloom")
+        assert engine.bang_query(queries)[0].shape == (8, 10)
+    from bang_tpu_torch.utils.graph_tools import warmup_touch
+    assert warmup_touch(s._index) == warmup_touch(b._searcher) > 0.99 * 1500
+    from bang_tpu_torch.models.streaming import StreamingIndex
+    from bang_tpu_torch.utils.config import SearchParams
+    st = StreamingIndex(capacity=300, dim=8, r=8, l_build=16, dtype=np.uint8, device="cpu")
+    assert st.insert(data[:200]).tolist() == list(range(200))
+    ids, dists = st.search(data[:3].astype(np.float32), SearchParams(L=16, k=5))
+    assert ids[:, 0].tolist() == [0, 1, 2] and (dists[:, 0] == 0).all(), ids
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not any(m.split(".")[0] in ("jax", "bang_tpu") for m in loaded), loaded
-assert "bang_tpu_torch.scripts.exp_dma_tiled" in loaded
+for new in ("ops.bloom", "utils.graph_tools", "harness.serving", "models.streaming",
+            "utils.validate", "formats.texmex", "scripts.exp_dma_tiled"):
+    assert "bang_tpu_torch." + new in loaded, new
 print("no-jax search ok")
 """
 
