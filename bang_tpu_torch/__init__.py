@@ -18,8 +18,13 @@ stream per query sub-batch) end to end — PQ tables, the traversal loop with
 medoid or sampled entries, exact re-rank, the `BANGSearch("base" |
 "inmemory" | "exactdistance")` facade, the harness CLI
 (`python -m bang_tpu_torch.harness.driver`) — the builders a bench bundle
-needs, the Vamana graph included, and the layout probes of the JAX
-package's `scripts/` (`bang_tpu_torch.scripts`). Every Pallas kernel of the
+needs, the Vamana graph included, the layout probes of the JAX
+package's `scripts/` (`bang_tpu_torch.scripts`), and what lies past one
+card: `parallel/` (node-sharded and data-parallel search, the
+chunk-sharded PQ lookup and base variant, on a single-controller mesh of
+torch devices), `formats/bigbuild.py` (the sharded Vamana build),
+`formats/preprocess.py` (the DiskANN converter) and
+`entry.dryrun_multichip`. Every Pallas kernel of the
 repo has a hand-written CUDA kernel under `csrc/` (see `ops/pq_kernels.py`,
 `ops/exact_kernels.py` and `ops/probe_kernels.py`).
 

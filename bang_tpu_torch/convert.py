@@ -9,6 +9,10 @@ fused PQ or exact rows without an adjacency table — the [N, R] neighbor
 ids are decoded back out of it, and the port's own layout is built from
 them with the same auto-selection as loading the files.
 
+`sharded_index_from_jax` carries a JAX `parallel.partition.ShardedIndex`
+(numpy arrays) over to the port's ShardedIndex, so that both packages
+search the same shards.
+
 The base variant needs no converter: it holds no device index to carry
 over. `models/base.BaseVariantSearcher` reads the reference's own files —
 `<prefix>_disk.bin`, `<prefix>_disk_metadata.bin` and the two PQ files —
@@ -19,6 +23,7 @@ which the port reads and writes byte for byte as the JAX package does
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from bang_tpu_torch.models.index import (
     DeviceIndex,
@@ -89,4 +94,36 @@ def index_from_jax(jax_index, device, fused_frontier: bool | None = None,
         adjacency_of(jax_index), np.asarray(jax_index.vectors),
         np.asarray(jax_index.codes), codebook, jax_index.medoid, device,
         fused_frontier,
+    )
+
+
+def sharded_index_from_jax(jax_si, device):
+    """Port-side parallel.partition.ShardedIndex on `device` from a JAX
+    ShardedIndex: the same graphs, vectors, codes, codebook, medoids, id
+    bases and fused rows (the two packages' rows are byte-identical). A
+    JAX index holding `nbr_codes`, a TPU layout the port leaves out,
+    raises."""
+    from bang_tpu_torch.device import resolve_device
+    from bang_tpu_torch.parallel.partition import ShardedIndex
+
+    if jax_si.nbr_codes is not None:
+        raise ValueError("the JAX index holds nbr_codes, a TPU layout the port "
+                         "leaves out: build it without neighbor_codes")
+    dev = resolve_device(device)
+
+    def tensor(x):
+        return None if x is None else torch.tensor(np.asarray(x), device=dev)
+
+    cb = jax_si.codebook
+    codebook = None if cb is None else PQCodebook.from_numpy(
+        np.asarray(cb.piv_chunks), np.asarray(cb.piv_norms), np.asarray(cb.dim_idx),
+        np.asarray(cb.dim_mask), np.asarray(cb.centroid), dev)
+    return ShardedIndex(
+        adj=tensor(np.asarray(jax_si.adj, np.int32)),
+        vectors=tensor(jax_si.vectors),
+        codes=tensor(jax_si.codes),
+        codebook=codebook,
+        medoids=np.asarray(jax_si.medoids, np.int32),
+        id_base=np.asarray(jax_si.id_base, np.int32),
+        fused_rows=tensor(jax_si.fused_rows),
     )

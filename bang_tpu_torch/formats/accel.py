@@ -181,6 +181,18 @@ def build_pruned_knn_graph(
     return _random_edges(adj, k_keep, n_random, seed), np.full(n, r, dtype=np.int32)
 
 
+def _encode_block(chunk_data: torch.Tensor, piv_chunks: torch.Tensor) -> torch.Tensor:
+    """chunk_data [B, m, dmax] f32 (centered, zero-padded per chunk);
+    piv_chunks [m, 256, dmax] -> codes [B, m] u8, the nearest center per
+    chunk (first on ties), by the norm expansion (the JAX `_encode_block`)."""
+    d = (
+        (piv_chunks * piv_chunks).sum(-1)[None]
+        - 2.0 * torch.einsum("bmt,mjt->bmj", chunk_data, piv_chunks)
+        + (chunk_data * chunk_data).sum(-1)[:, :, None]
+    )
+    return torch.argmin(d, dim=-1).to(torch.uint8)
+
+
 def encode_pq(vectors: np.ndarray, pq, device, block: int = 65536) -> np.ndarray:
     """PQ-encode all vectors: codes [N, m] uint8 (nearest center per chunk),
     the contract of `synthetic.encode_pq` / the JAX `encode_pq_jax`."""
@@ -189,16 +201,10 @@ def encode_pq(vectors: np.ndarray, pq, device, block: int = 65536) -> np.ndarray
     cb = prepare_pq_codebook(pq.pivots, pq.centroid, pq.chunk_offsets, dev)
     dim_idx = cb.dim_idx.cpu().numpy()
     dim_mask = cb.dim_mask.cpu().numpy()
-    piv_norms = (cb.piv_chunks * cb.piv_chunks).sum(-1)  # [m, 256]
     n = vectors.shape[0]
     codes = np.empty((n, cb.num_chunks), np.uint8)
     for s in range(0, n, block):
         x = vectors[s : s + block].astype(np.float32) - pq.centroid
         chunk_data = torch.as_tensor(x[:, dim_idx] * dim_mask, device=dev)
-        d = (
-            piv_norms[None]
-            - 2.0 * torch.einsum("bmt,mjt->bmj", chunk_data, cb.piv_chunks)
-            + (chunk_data * chunk_data).sum(-1)[:, :, None]
-        )
-        codes[s : s + block] = torch.argmin(d, dim=-1).to(torch.uint8).cpu().numpy()
+        codes[s : s + block] = _encode_block(chunk_data, cb.piv_chunks).cpu().numpy()
     return codes

@@ -130,7 +130,10 @@ def measure_base_device_step_ms(
     neighbors are fixed random ids and the parents' vectors zeros, and the
     state's iteration stays at 1, so every step runs the same ops at the
     same shapes. On a host that keeps up, the pipelined wall is about
-    max(total host gather, steps x this)."""
+    max(total host gather, steps x this). The chunk-sharded searcher
+    (parallel/base_tp.ShardedBaseSearcher) is timed the same way: its
+    `_prepare_tables` and `_run_step` are the per-shard lookups and the
+    psum."""
     from bang_tpu_torch.models.base import _init_state
 
     dev = searcher.device

@@ -171,7 +171,7 @@ def _base_finish(state: BaseState, k: int):
 
 
 class _SubBatch:
-    """One pipeline sub-batch: its queries, distance function and traversal
+    """One pipeline sub-batch: its queries, PQ tables and traversal
     state on the device, made inside its own stream's context (the caching
     allocator ties memory to the stream it was allocated on); its pinned
     staging (nbrs, vecs; written by the host gather) and readback (parents,
@@ -194,8 +194,8 @@ class _SubBatch:
         self.active_host = torch.ones((1,), dtype=torch.bool, pin_memory=cuda)
         with self.context():
             self.queries = torch.tensor(queries, device=dev)
-            self.distance_fn = searcher._prepare_tables(self.queries)
-            entries = searcher._select_entries(self.queries, params, beam)
+            self.tables = searcher._prepare_tables(self.queries)
+            entries = searcher._select_entries(self.queries, self.tables, params, beam)
             self.state = _init_state(q, params.L, params.max_iters, entries, beam,
                                      params.visited_mode == "bloom")
             # a blocking copy: it waits for this stream
@@ -232,8 +232,14 @@ class BaseVariantSearcher:
         n_pipeline_batches: int = 4,
         n_threads: int = 0,
         mmap: bool = True,
+        keep_codes_on_host: bool = False,
         device="cuda",
     ):
+        """keep_codes_on_host: leave the [N, m] code matrix in host RAM
+        (`codes_np`, `codes` None) instead of copying it whole to `device`,
+        for a subclass that splits it over several devices
+        (parallel/base_tp.ShardedBaseSearcher), where the whole matrix may
+        not fit one device's memory."""
         self.device = resolve_device(device)
         self.meta = load_metadata(prefix + GRAPH_METADATA_FILE_SUFFIX)
         path = prefix + GRAPH_INDEX_FILE_SUFFIX
@@ -245,7 +251,10 @@ class BaseVariantSearcher:
                 n, entry_len
             )
         pq = load_pq(prefix)
-        self.codes = torch.tensor(pq.codes, device=self.device)  # [N, m] u8
+        if keep_codes_on_host:
+            self.codes_np, self.codes = np.asarray(pq.codes), None
+        else:
+            self.codes = torch.tensor(pq.codes, device=self.device)  # [N, m] u8
         self.codebook = prepare_pq_codebook(pq.pivots, pq.centroid, pq.chunk_offsets,
                                             self.device)
         self.vec_bytes = self.meta.dim * self.meta.numpy_dtype.itemsize
@@ -257,20 +266,22 @@ class BaseVariantSearcher:
         self.last_n_d2h = 0
 
     def _prepare_tables(self, sub_queries):
-        """The per-sub-batch PQ distance function (traversal.
-        make_pq_distance_fn): on the card the tables are packed once and K1
-        reads them for codes[nbrs]; on the CPU the f32 tables and
-        ops/pq.pq_lookup, as JAX's `pq_impl="auto"`."""
+        """A sub-batch's PQ tables, in whatever form `_run_step` and
+        `_select_entries` take them: here the distance function of
+        traversal.make_pq_distance_fn (on the card the tables are packed
+        once and K1 reads them for codes[nbrs]; on the CPU the f32 tables
+        and ops/pq.pq_lookup, as JAX's `pq_impl="auto"`)."""
         return make_pq_distance_fn(sub_queries, self.codebook, self.codes)
 
-    def _run_step(self, state, nbrs, parent_vecs, queries_f32, distance_fn, beam):
+    def _run_step(self, state, nbrs, parent_vecs, queries_f32, tables, beam):
         """One device step: the PQ lookup, then the shared step core."""
-        return _step_core(state, nbrs, parent_vecs, queries_f32, distance_fn(nbrs),
-                          beam)
+        return _step_core(state, nbrs, parent_vecs, queries_f32, tables(nbrs), beam)
 
-    def _select_entries(self, sub_queries, params, beam):
+    def _select_entries(self, sub_queries, tables, params, beam):
         """One sub-batch's entry points, [q_b, P] int32 on the device: the
-        shared medoid, or the per-query sampled entries."""
+        shared medoid, or the per-query sampled entries. `tables` is what
+        `_prepare_tables` made for the sub-batch (the chunk-sharded
+        subclass ranks its sample with them)."""
         if params.entry_mode != "sampled":
             return torch.full((sub_queries.shape[0], 1), self.meta.medoid,
                               dtype=torch.int32, device=sub_queries.device)
@@ -352,7 +363,7 @@ class BaseVariantSearcher:
                     nbrs = sb.nbrs_host.to(dev, non_blocking=True)
                     vecs = sb.vecs_host.to(dev, non_blocking=True).view(self.vec_dtype)
                     sb.state, parents, active_any = self._run_step(
-                        sb.state, nbrs, vecs, sb.queries, sb.distance_fn, beam)
+                        sb.state, nbrs, vecs, sb.queries, sb.tables, beam)
                     sb.parents_host.copy_(parents, non_blocking=True)
                     sb.active_host.copy_(active_any.view(1), non_blocking=True)
                     if sb.event is not None:

@@ -88,6 +88,19 @@ class DeviceIndex:
     nbr_vec_norms: Optional[torch.Tensor] = None  # [N, R] f32
     fused_vec_rows: Optional[torch.Tensor] = None  # [N, R*(8+D)] u8 — fused exact
 
+    def to(self, device) -> "DeviceIndex":
+        """This index on `device`: a copy of every tensor, or the index
+        itself when it is there already (parallel/sharded.py places one
+        replica per distinct device)."""
+        dev = torch.device(device)
+        if self.vectors.device == dev:
+            return self
+        moved = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        for name, value in moved.items():
+            if isinstance(value, (torch.Tensor, PQCodebook)):
+                moved[name] = value.to(dev)
+        return DeviceIndex(**moved)
+
 
 def fused_layout_fits(n: int, r: int, m: int) -> bool:
     """Whether the fused PQ rows of an (N, R, m) index fit FUSED_LAYOUT_BUDGET."""

@@ -42,6 +42,12 @@ class PQCodebook:
     def num_chunks(self) -> int:
         return self.piv_chunks.shape[0]
 
+    def to(self, device) -> "PQCodebook":
+        """This codebook on `device` (itself when it is there already)."""
+        return dataclasses.replace(
+            self, **{f.name: getattr(self, f.name).to(device)
+                     for f in dataclasses.fields(self)})
+
     @classmethod
     def from_numpy(cls, piv_chunks, piv_norms, dim_idx, dim_mask, centroid, device):
         """Build from numpy leaves (the same five arrays the JAX codebook

@@ -115,6 +115,32 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 consolidate(batch=4096), re-insert 4,096 into freed slots):
                 recall@10 over the live set >= 90 before and after the churn,
                 no kernel launched.
+ 14. sharded  — parallel/ on the bundle's data, every mesh on [card] * n
+                (one card): K1 against its plain version and timed at each
+                code width the sharded paths give it (m/4 chunks, and the dry
+                run's 1 and 8); the card's kNN graph against numpy's on 20K
+                points (rows reported); 4 node shards of 250K points (R=64,
+                m=64, the bundle's codebook) searched on a (1, 4) mesh at L in
+                {128, 256}, fused (K2) and scattered (K1): ids and every
+                shard's iterations identical, recall@10 >= 90 at the best L;
+                the merge equal to each shard searched alone with
+                search_inmemory and merged on the host; exact shards at L=256
+                (no kernel), recall@10 >= 90; search_data_parallel on a (2, 1)
+                mesh, ids identical to search_inmemory; ShardedBaseSearcher
+                on a (1, 4) mesh (8 sub-batches, base L in {30, 90}, medoid
+                and sampled entry): ids equal to the single-card base's on
+                >= 98% of slots, recall@10 >= 90, K1 launched 4 times a step
+                (and 4 times per sub-batch's sampled entries); then
+                entry.dryrun_multichip(4). Walls, iterations and peak memory.
+ 15. sharded build — formats/bigbuild.py: BlockGen at N=1M x 128 u8 on the
+                card, build_sharded_vamana (4 shards, overlap 2, R=64, l_build
+                48, batch 4096, one pass; no kernel), k-means and the
+                assignment run again and equal, each shard's measured
+                peak memory beside shard_build_hbm_bytes; the int8 ground
+                truth for 10K queries equal to formats/accel.
+                compute_groundtruth's distances on every slot; PQ (m=64,
+                trained on 16,384 points) encoded on the card; in-memory search
+                (K2) over the merged graph at L in {64, 128}, recall@10 >= 90.
 Each probe script and each search phase zeroes every launch count just
 before it and reads them just after: the kernels of its path must have
 launched and no other. The second-to-last line is a JSON object describing
@@ -158,6 +184,29 @@ WARMUP_L = {"inmemory": 64, "exactdistance": 30, "base": 30}
 SERVER_BATCH = 128
 # phase 13: bench.py::streaming_row's point (bench.py:628-717)
 STREAM_N, STREAM_R, STREAM_Q, STREAM_CHUNK = 200_000, 32, 2048, 4096
+
+# phase 14: the bundle's data in SHARDS node shards (or chunk shards for
+# base), each mesh on [card] * n; the node-sharded and chunk-sharded Ls. A
+# shard's graph is partition.py's kNN + random edges, not Vamana: at 250K
+# points in ~1000 clusters the walk finds the query's cluster through the
+# random edges, so recall needs a longer walk than the bundle's graph
+# (75.5 at L=64, 88.8 at L=128 on the card, PERF.md)
+SHARDS = 4
+SHARD_L = (128, 256)
+EXACT_SHARD_L = 256
+TP_BASE_L = (30, 90)
+KNN_CHECK_N = 20_000  # the card's kNN graph against numpy's on this many points
+# K1 at the code widths the sharded paths launch it with: (label, Q, C, m)
+K1_WIDTHS = (
+    ("the chunk-sharded base, m/4 chunks a shard", Q // BASE_PIPELINE, BASE_BEAM * R,
+     M // SHARDS),
+    ("the dry run's base, 1 chunk a shard", 8, 64, 1),
+    ("the dry run's node shards", 8, 24, 8),
+)
+# phase 15: the sharded build's dataset, the PQ training sample, the Ls
+BIG_N = 1_000_000
+PQ_SAMPLE = 16_384
+BIG_L = (64, 128)
 
 # (label, Q, N rows, R, m, beam, ids drawn below): the main path's shape,
 # then the other shapes the kernels must take.
@@ -1125,7 +1174,7 @@ def phase_base(prefix, dev, totals):
     log(f"host gather per step: {pure:.4f} ms alone, {in_loop:.4f} ms in the loop "
         f"(L={best['L']})")
     profile_base(prefix, dev, best["L"])
-    return best
+    return best, rows
 
 
 def _against_exact(what, exact_runs, bloom_runs):
@@ -1410,6 +1459,393 @@ def phase_streaming(dev, totals):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _shard_iters():
+    """Record the iterations of every shard search in parallel/sharded (its
+    run_traversal, wrapped); yields the list they are appended to."""
+    from bang_tpu_torch.parallel import sharded
+
+    iters, orig = [], sharded.run_traversal
+
+    def recorded(*args, **kwargs):
+        state = orig(*args, **kwargs)
+        iters.append(state.it)
+        return state
+
+    sharded.run_traversal = recorded
+    try:
+        yield iters
+    finally:
+        sharded.run_traversal = orig
+
+
+def _timed(fn):
+    """(fn's result, wall s, peak GB) around one synchronised call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _host_ids(ids):
+    return ids.cpu().numpy().astype(np.int64)
+
+
+def _k1_widths(dev, kern):
+    """K1 against its plain version, and timed, at each code width the
+    sharded paths launch it with: the chunk-sharded base's sub-batch
+    (m/SHARDS chunks a shard), the dry run's base (1 chunk a shard) and
+    node shards (8 chunks), on random packed tables and codes."""
+    from bang_tpu_torch.ops import pq_kernels as pk
+    from bang_tpu_torch.scripts import _common as cm
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for label, q, c, m in K1_WIDTHS:
+        packed = pk.pack_tables(cm.tables(gen, q, m, dev))
+        codes = torch.randint(0, 256, (q, c, m), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        got = pk.pq_lookup(packed, codes)
+        torch.cuda.synchronize()
+        err = _note_err(kern, "pq_lookup", cm.dist_err(
+            f"pq_lookup {label}", got, pk.lookup_packed_plain(packed, codes)))
+        ms = _time_ms(lambda: pk.pq_lookup(packed, codes))
+        plain = _time_ms(lambda: pk.lookup_packed_plain(packed, codes))
+        bound = (packed.numel() * 4 + codes.numel() + q * c * 4) / HBM_BYTES_PER_S * 1e3
+        log(f"K1 at {label} (Q={q} C={c} m={m}): max abs err {err:.3g}; {ms:.4f} ms "
+            f"(plain {plain:.4f} ms), bound {bound:.4f} ms ({bound / ms:.0%} of it)")
+    pk.reset_launch_counts()
+
+
+def _sharded_rows(mesh, si, queries, gt, L, label, beam=BEAM_EXTRA["inmemory"][0],
+                  extra=BEAM_EXTRA["inmemory"][1]):
+    """search_sharded at L: (ids, dists, row) with the row's recall,
+    iterations of each shard, wall and peak memory."""
+    from bang_tpu_torch.parallel.sharded import search_sharded
+    from bang_tpu_torch.utils.config import SearchParams
+    from bang_tpu_torch.utils.recall import calculate_recall
+
+    params = SearchParams(L=L, k=K, beam_width=beam, extra_iters=extra)
+    with _shard_iters() as iters:
+        (ids, dists), wall, peak = _timed(lambda: search_sharded(mesh, si, queries,
+                                                                 params))
+    ids, dists = _host_ids(ids), dists.cpu().numpy()
+    row = {"L": L, "recall": calculate_recall(gt[0], ids, K, gt[1]), "iters": list(iters),
+           "wall_s": wall, "peak_gb": peak}
+    log(f"sharded {label} L={L}: recall@10 {row['recall']:.2f}, shard iterations "
+        f"{row['iters']}, wall {wall:.4f} s (qps {len(queries) / wall:.1f}), peak "
+        f"{peak:.2f} GB")
+    return ids, dists, row
+
+
+def _merge_alone(si, queries, params, dev):
+    """Each shard searched alone with search_inmemory, merged on the host
+    (shard-major, stable): what search_sharded's all_gather and top-k must
+    give."""
+    from bang_tpu_torch.models.index import DeviceIndex
+    from bang_tpu_torch.models.inmemory import search_inmemory
+    from bang_tpu_torch.ops.l2 import squared_norms
+
+    ids, dists = [], []
+    for s in range(si.n_shards):
+        sh = si.shard(s, dev)
+        ix = DeviceIndex(adj=None, vectors=sh.vectors,
+                         vector_norms=squared_norms(sh.vectors), codes=sh.codes,
+                         fused_rows=sh.fused_rows, codebook=sh.codebook,
+                         medoid=sh.medoid, n=si.n_local, dim=sh.vectors.shape[1])
+        i, d, _ = search_inmemory(ix, queries, params)
+        i = _host_ids(i)
+        ids.append(np.where(i >= 0, i + sh.id_base, i))
+        dists.append(d.cpu().numpy())
+    flat_i = np.stack(ids, 1).reshape(len(queries), -1)
+    flat_d = np.stack(dists, 1).reshape(len(queries), -1)
+    order = np.argsort(flat_d, axis=1, kind="stable")[:, :K]
+    return np.take_along_axis(flat_i, order, 1)
+
+
+def _base_tp_rows(prefix, dev, entry_mode, single):
+    """ShardedBaseSearcher on a (1, SHARDS) mesh over the bundle, at each
+    L of TP_BASE_L with 8 sub-batches: recall, steps, wall, stage ms, peak;
+    ids against the single-card base's at the same L (`single`: L -> ids).
+    Returns (rows, K1 launches expected: SHARDS per step, plus SHARDS per
+    sub-batch for the sampled entries)."""
+    from bang_tpu_torch.formats.bin_io import load_bin, load_truthset
+    from bang_tpu_torch.parallel.base_tp import ShardedBaseSearcher
+    from bang_tpu_torch.parallel.sharded import make_mesh
+    from bang_tpu_torch.utils.config import SearchParams
+    from bang_tpu_torch.utils.recall import calculate_recall
+
+    queries = load_bin(prefix + "_query.bin", np.uint8)
+    gt_ids, gt_dists = load_truthset(prefix + "_gt.bin")
+    tp = ShardedBaseSearcher(prefix, make_mesh(1, SHARDS, [dev] * SHARDS),
+                             n_pipeline_batches=BASE_PIPELINE, mmap=False)
+    tp.timers.enabled = True
+    expected, rows = 0, []
+    sampled = entry_mode == "sampled"  # one lookup a shard per sub-batch's entries
+    for L in TP_BASE_L:
+        params = SearchParams(L=L, k=K, beam_width=BASE_BEAM, extra_iters=BASE_EXTRA,
+                              entry_mode=entry_mode)
+        tp.search(queries[: Q // BASE_PIPELINE], params)  # warm-up: one sub-batch
+        expected += SHARDS * (tp.last_n_steps + sampled * BASE_PIPELINE)
+        (ids, dists), wall, peak = _timed(lambda: tp.search(queries, params))
+        expected += SHARDS * (tp.last_n_steps + sampled * BASE_PIPELINE)
+        agree = float((ids == single[L]).mean())
+        row = {"L": L, "recall": calculate_recall(gt_ids, ids, K, gt_dists),
+               "steps": tp.last_n_steps, "agree": agree, "wall_s": wall,
+               "peak_gb": peak, "stages": dict(tp.timers.ms)}
+        log(f"sharded base {entry_mode} L={L}: recall@10 {row['recall']:.2f}, steps "
+            f"{row['steps']}, ids equal to the single-card base's on {agree:.2%} of "
+            f"slots, wall {wall:.4f} s (qps {Q / wall:.1f}), peak {peak:.2f} GB; stage "
+            "ms " + ", ".join(f"{k} {v:.3f}" for k, v in row["stages"].items()))
+        if agree < 0.98:
+            raise AssertionError(f"sharded base {entry_mode} L={L}: ids agree with the "
+                                 f"single-card base on {agree:.2%} < 98%")
+        rows.append(row)
+    _best(rows, f"sharded base {entry_mode}")
+    codes_mb = sum(c.numel() for c in tp.codes_sharded) / 1e6
+    log(f"sharded base: codes {codes_mb:.1f} MB in {SHARDS} chunk slices of "
+        f"{tp.codes_sharded[0].shape[1]} chunks")
+    del tp
+    torch.cuda.empty_cache()
+    return rows, expected
+
+
+def phase_sharded(prefix, dev, totals, kern, base_rows):
+    """Phase 14: the sharded paths on the bundle's data, every mesh on
+    [dev] * n (one card)."""
+    import dataclasses
+
+    from bang_tpu_torch.formats import accel, synthetic
+    from bang_tpu_torch.formats.bin_io import load_bin, load_truthset
+    from bang_tpu_torch.formats.graph import load_graph_index
+    from bang_tpu_torch.formats.pq import load_pq
+    from bang_tpu_torch.models.base import BaseVariantSearcher
+    from bang_tpu_torch.models.index import device_index_from_files
+    from bang_tpu_torch.models.inmemory import search_inmemory
+    from bang_tpu_torch.ops import pq_kernels as pk
+    from bang_tpu_torch.parallel.partition import partition_index
+    from bang_tpu_torch.parallel.sharded import make_mesh, search_data_parallel
+    from bang_tpu_torch.utils.config import SearchParams
+
+    _k1_widths(dev, kern)
+    queries = load_bin(prefix + "_query.bin", np.uint8)
+    gt = load_truthset(prefix + "_gt.bin")
+    data = load_graph_index(prefix).vectors
+    pq = load_pq(prefix)
+    n_loc = len(data) // SHARDS
+
+    # the card's kNN graph against the numpy one (JAX's) on a small shard
+    part = data[:KNN_CHECK_N]
+    kw = dict(n_random=max(2, R // 8), seed=0)
+    (a_card, _), secs = _timed(lambda: accel.build_knn_graph(part, R, dev, **kw))[:2]
+    t0 = time.perf_counter()
+    a_np, _ = synthetic.build_knn_graph(part, R, **kw)
+    same_rows = int((a_card == a_np).all(axis=1).sum())
+    same_sets = int((np.sort(a_card, 1) == np.sort(a_np, 1)).all(axis=1).sum())
+    log(f"sharded: kNN graph of {len(part)} points on the card ({secs:.2f} s) and in "
+        f"numpy ({time.perf_counter() - t0:.2f} s): rows identical {same_rows}, "
+        f"identical as sets {same_sets} of {len(part)}")
+
+    si, build_s, build_gb = _timed(lambda: partition_index(
+        data, SHARDS, R, pq, seed=0, fused_frontier=True, device=dev))
+    log(f"sharded: {SHARDS} shards of {n_loc} points (R={R}, m={M}, fused rows) built "
+        f"in {build_s:.2f} s, peak {build_gb:.2f} GB")
+    si_sc = dataclasses.replace(si, fused_rows=None, _placed={})
+    mesh = make_mesh(1, SHARDS, [dev] * SHARDS)
+
+    rows, fused_ids = [], {}
+    for L in SHARD_L:
+        ids_f, d_f, row_f = counted(f"sharded fused L={L}", {"frontier_lookup"},
+                                    lambda: _sharded_rows(mesh, si, queries, gt, L,
+                                                          "fused"), totals)
+        ids_s, _, row_s = counted(f"sharded scattered L={L}", {"pq_lookup"},
+                                  lambda: _sharded_rows(mesh, si_sc, queries, gt, L,
+                                                        "scattered"), totals)
+        same = (ids_f == ids_s).all(axis=1)
+        if not same.all() or row_f["iters"] != row_s["iters"]:
+            raise AssertionError(
+                f"sharded L={L}: scattered differs from fused: ids on "
+                f"{int((~same).sum())} queries, iterations {row_s['iters']} vs "
+                f"{row_f['iters']}")
+        _check_output(ids_f, d_f, queries, data, len(data))
+        rows.append(row_f)
+        fused_ids[L] = ids_f
+    best = _best(rows, "sharded fused")
+    log(f"sharded: fused and scattered ids and shard iterations identical at L="
+        f"{list(SHARD_L)}")
+
+    params = SearchParams(L=best["L"], k=K, beam_width=BEAM_EXTRA["inmemory"][0],
+                          extra_iters=BEAM_EXTRA["inmemory"][1])
+    alone = counted("sharded merge check", {"frontier_lookup"},
+                    lambda: _merge_alone(si, queries, params, dev), totals)
+    ids_best = fused_ids[best["L"]]
+    if not np.array_equal(alone, ids_best):
+        raise AssertionError(f"sharded merge: differs from each shard searched alone and "
+                             f"merged on the host on "
+                             f"{int((alone != ids_best).any(axis=1).sum())} queries")
+    log(f"sharded L={best['L']}: the merge equals {SHARDS} shards searched alone and "
+        "merged on the host, for every query")
+
+    si_ex = dataclasses.replace(si, codes=None, codebook=None, fused_rows=None,
+                                _placed={})
+    ex_ids, ex_d, ex_row = counted(
+        f"sharded exact L={EXACT_SHARD_L}", set(),
+        lambda: _sharded_rows(mesh, si_ex, queries, gt, EXACT_SHARD_L, "exact",
+                              *BEAM_EXTRA["exactdistance"]), totals)
+    _check_output(ex_ids, ex_d, queries, data, len(data))
+    _best([ex_row], "sharded exact")
+    del si, si_sc, si_ex
+    torch.cuda.empty_cache()
+
+    def data_parallel():
+        index = device_index_from_files(prefix, dev)
+        (ids, _), wall, peak = _timed(lambda: search_data_parallel(
+            make_mesh(2, 1, [dev] * 2), index, queries, params))
+        one = search_inmemory(index, queries, params)[0]
+        return _host_ids(ids), _host_ids(one), wall, peak
+
+    dp, one, wall, peak = counted("data parallel", {"frontier_lookup"}, data_parallel,
+                                  totals)
+    if not np.array_equal(dp, one):
+        raise AssertionError(f"data parallel: ids differ from search_inmemory on "
+                             f"{int((dp != one).any(axis=1).sum())} queries")
+    log(f"data parallel (2, 1) L={best['L']}: ids identical to search_inmemory on all "
+        f"{len(dp)} queries; wall {wall:.4f} s, peak {peak:.2f} GB")
+    torch.cuda.empty_cache()
+
+    single = {"medoid": {r["L"]: r["ids"] for r in base_rows}}
+
+    def single_sampled():
+        searcher = BaseVariantSearcher(prefix, BASE_PIPELINE, mmap=False, device=dev)
+        return {L: searcher.search(queries, SearchParams(
+            L=L, k=K, beam_width=BASE_BEAM, extra_iters=BASE_EXTRA,
+            entry_mode="sampled"))[0] for L in TP_BASE_L}
+
+    single["sampled"] = counted("single base sampled", {"pq_lookup"}, single_sampled,
+                                totals)
+    for entry_mode in ("medoid", "sampled"):
+        def run():
+            rows, expected = _base_tp_rows(prefix, dev, entry_mode, single[entry_mode])
+            if pk.pq_lookup.launches != expected:
+                raise AssertionError(f"sharded base {entry_mode}: K1 launched "
+                                     f"{pk.pq_lookup.launches} times, expected {expected}")
+            log(f"sharded base {entry_mode}: K1 launches {expected} = {SHARDS} per step "
+                "(and per sub-batch's sampled entries)")
+            return rows
+
+        counted(f"sharded base {entry_mode}", {"pq_lookup"}, run, totals)
+
+    from bang_tpu_torch.entry import dryrun_multichip
+
+    counted("dryrun_multichip", {"pq_lookup", "frontier_lookup"},
+            lambda: dryrun_multichip(SHARDS, device=dev), totals)
+    return best
+
+
+def phase_bigbuild(dev, totals):
+    """Phase 15: BlockGen, the sharded Vamana build, the int8 ground truth
+    and a search over the merged graph."""
+    from bang_tpu_torch.formats import accel, bigbuild, synthetic
+    from bang_tpu_torch.models.index import assemble_device_index
+    from bang_tpu_torch.models.inmemory import search_inmemory
+    from bang_tpu_torch.ops.pq import prepare_pq_codebook
+    from bang_tpu_torch.utils.config import SearchParams
+    from bang_tpu_torch.utils.recall import calculate_recall
+
+    t = {}
+
+    def stage(name, fn):
+        out, t[name], peak = _timed(fn)
+        log(f"bigbuild {name} {t[name]:.2f}s (peak {peak:.2f} GB)")
+        return out
+
+    from bang_tpu_torch.formats import vamana
+
+    shard_peaks, build_vamana = [], vamana.build_vamana_graph
+
+    def measured(vectors, *args, **kwargs):
+        """build_vamana_graph, its peak device memory above what was held
+        before it (the shard's vectors included) recorded per shard."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = build_vamana(vectors, *args, **kwargs)
+        torch.cuda.synchronize()
+        shard_peaks.append((vectors.shape[0], torch.cuda.max_memory_allocated() - before
+                            + vectors.numel()))
+        return out
+
+    def build():
+        gen = stage("blockgen", lambda: bigbuild.BlockGen(BIG_N, D, seed=0, device=dev))
+        vamana.build_vamana_graph = measured
+        try:
+            adj, degrees, assignment = stage("sharded_vamana", lambda: (
+                bigbuild.build_sharded_vamana(
+                    gen, r=R, l_build=VAMANA["l_build"], n_shards=SHARDS, overlap=2,
+                    batch=VAMANA["batch"], n_passes=1, alpha=VAMANA["alpha"], seed=0)))
+        finally:
+            vamana.build_vamana_graph = build_vamana
+        centers = bigbuild.kmeans_device(gen.gen_block(0)[: 1 << 21], SHARDS, iters=12,
+                                         seed=1)
+        if not np.array_equal(bigbuild.assign_shards(gen, centers, 2)[0], assignment):
+            raise AssertionError("bigbuild: k-means and the assignment, run again, "
+                                 "differ from the build's")
+        counts = [int((assignment == s).any(axis=1).sum()) for s in range(SHARDS)]
+        log(f"bigbuild: assignment reproduced; members per shard {counts} (overlap 2 "
+            f"over {BIG_N}); degrees "
+            f"mean {degrees.mean():.2f} min {degrees.min()}; budget "
+            f"{bigbuild._budget(dev) / 1e9:.1f} GB")
+        for n_s, peak in shard_peaks:
+            model = bigbuild.shard_build_hbm_bytes(n_s, D, R, VAMANA["batch"],
+                                                   VAMANA["l_build"])
+            log(f"bigbuild shard of {n_s} points: measured peak {peak / 1e9:.3f} GB, "
+                f"shard_build_hbm_bytes {model / 1e9:.3f} GB ({peak / model:.2f}x)")
+        return gen, adj, degrees
+
+    gen, adj, degrees = counted("bigbuild build", set(), build, totals)
+    data = stage("materialize", lambda: bigbuild.materialize_host(gen))
+    rng = np.random.default_rng(1)
+    queries = data[rng.integers(0, BIG_N, Q)].astype(np.float32)
+    queries += rng.normal(0, 2.0, queries.shape).astype(np.float32)
+    queries = np.clip(np.rint(queries), 0, 255).astype(np.uint8)
+    gt_ids, gt_d = stage("groundtruth_u8", lambda: bigbuild.groundtruth_u8_streamed(
+        gen, queries, K, q_block=512))
+    ref_ids, ref_d = stage("groundtruth_f32", lambda: accel.compute_groundtruth(
+        data, queries.astype(np.float32), K, dev))
+    if not np.array_equal(gt_d, ref_d):
+        raise AssertionError(f"int8 ground truth: distances differ from "
+                             f"compute_groundtruth's on {int((gt_d != ref_d).sum())} slots")
+    log(f"bigbuild: int8 ground truth distances equal compute_groundtruth's on all "
+        f"{gt_d.size} slots; ids equal on {(gt_ids == ref_ids).mean():.4%}")
+    medoid = stage("medoid", lambda: bigbuild.medoid_streamed(gen))
+    pq = stage("pq_train", lambda: synthetic.train_pq(data, M, sample=PQ_SAMPLE, seed=0))
+    codes = stage("pq_encode", lambda: bigbuild.encode_pq_streamed(gen, pq))
+    del gen
+
+    def search():
+        cb = prepare_pq_codebook(pq.pivots, pq.centroid, pq.chunk_offsets, dev)
+        index = assemble_device_index(adj, data, codes, cb, medoid, dev)
+        rows = []
+        for L in BIG_L:
+            params = SearchParams(L=L, k=K, beam_width=BEAM_EXTRA["inmemory"][0],
+                                  extra_iters=BEAM_EXTRA["inmemory"][1])
+            (ids, dists, stats), wall, peak = _timed(
+                lambda: search_inmemory(index, queries, params))
+            ids = _host_ids(ids)
+            _check_output(ids, dists.cpu().numpy(), queries, data, BIG_N)
+            row = {"L": L, "recall": calculate_recall(gt_ids, ids, K, gt_d)}
+            log(f"bigbuild search L={L}: recall@10 {row['recall']:.2f}, iters "
+                f"{stats.iters}, wall {wall:.4f} s, peak {peak:.2f} GB")
+            rows.append(row)
+        return _best(rows, "bigbuild search")
+
+    best = counted("bigbuild search", {"frontier_lookup"}, search, totals)
+    log(f"bigbuild: stage seconds " + ", ".join(f"{k} {v:.2f}" for k, v in t.items()))
+    torch.cuda.empty_cache()
+    return best
+
+
 def counted(label, launched, fn, totals):
     """Run one search phase with every launch count zeroed just before and
     read just after; fail unless exactly the kernels named in `launched`
@@ -1435,9 +1871,10 @@ def _best(rows, what):
     return best
 
 
-def search_phases(dev, totals):
-    """Phases 4-13 on `dev`; adds the launch counts of 5-13 to `totals` (not
-    those of the profiled calls after phases 5, 6, 7, 10 and 11)."""
+def search_phases(dev, totals, kern):
+    """Phases 4-15 on `dev`; adds the launch counts of 5-15 to `totals` (not
+    those of the profiled calls after phases 5, 6, 7, 10 and 11, nor those
+    of phase 14's K1 checks, whose errors go into `kern`)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         prefix = os.path.join(tmp, "synth1m")
         build_bundle(prefix, dev)
@@ -1490,15 +1927,19 @@ def search_phases(dev, totals):
             if rows[-1]["recall"] < RECALL_TARGET:
                 raise AssertionError(f"{rows[-1]['search']}: recall@10 "
                                      f"{rows[-1]['recall']:.2f} < {RECALL_TARGET}")
-        best_b = phase_base(prefix, dev, totals)
+        best_b, base_rows = phase_base(prefix, dev, totals)
         phase_bloom(prefix, dev, totals)
         phase_warmup_serving(prefix, dev, totals)
+        best_s = phase_sharded(prefix, dev, totals, kern, base_rows)
     phase_streaming(dev, totals)
+    best_big = phase_bigbuild(dev, totals)
     log(f"ok: inmemory best L={best['L']} recall@10 {best['recall']:.2f}, "
         f"scattered ids and iterations identical; exactdistance best "
         f"L={best_e['L']} recall@10 {best_e['recall']:.2f}, scattered ids identical; "
         f"base best L={best_b['L']} recall@10 {best_b['recall']:.2f}, pipelined ids "
-        f"identical to serial; bloom, warm-up, serving and streaming checked")
+        f"identical to serial; bloom, warm-up, serving and streaming checked; sharded "
+        f"best L={best_s['L']} recall@10 {best_s['recall']:.2f}; sharded build best "
+        f"L={best_big['L']} recall@10 {best_big['recall']:.2f}")
 
 
 def main():
@@ -1514,7 +1955,7 @@ def main():
     totals = dict.fromkeys(KERNEL_SOURCES, 0)
     probe_scripts(totals)
     log(f"probes {time.perf_counter() - t0:.1f}s")
-    search_phases(dev, totals)
+    search_phases(dev, totals, kern)
     log(f"on {smi}")
 
     kernels = [

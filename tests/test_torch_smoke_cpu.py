@@ -73,10 +73,22 @@ with tempfile.TemporaryDirectory() as tmp:
     assert st.insert(data[:200]).tolist() == list(range(200))
     ids, dists = st.search(data[:3].astype(np.float32), SearchParams(L=16, k=5))
     assert ids[:, 0].tolist() == [0, 1, 2] and (dists[:, 0] == 0).all(), ids
+# the sharded paths on a mesh of 4 CPU positions, a sharded build, the converter
+from bang_tpu_torch.entry import dryrun_multichip
+dryrun_multichip(4, device="cpu")
+from bang_tpu_torch.formats import bigbuild
+gen = bigbuild.BlockGen(3000, 16, block=1024, n_clusters=16, seed=1, device="cpu")
+adj, deg, assignment = bigbuild.build_sharded_vamana(gen, r=8, l_build=16, n_shards=2,
+                                                     batch=512, verbose=False)
+assert adj.shape == (3000, 8) and assignment.shape == (3000, 2)
+from bang_tpu_torch.formats import preprocess
+assert preprocess.preprocess_data_mips(np.ones((3, 2), np.float32)).shape == (3, 3)
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not any(m.split(".")[0] in ("jax", "bang_tpu") for m in loaded), loaded
 for new in ("ops.bloom", "utils.graph_tools", "harness.serving", "models.streaming",
-            "utils.validate", "formats.texmex", "scripts.exp_dma_tiled"):
+            "utils.validate", "formats.texmex", "scripts.exp_dma_tiled",
+            "parallel.sharded", "parallel.partition", "parallel.pq_tp",
+            "parallel.base_tp", "formats.bigbuild", "formats.preprocess", "entry"):
     assert "bang_tpu_torch." + new in loaded, new
 print("no-jax search ok")
 """
