@@ -19,20 +19,18 @@ from bang_tpu_torch.models.traversal import (
     check_params,
     make_pq_distance_fn,
     rerank_topk,
-    run_traversal,
+    start_traversal,
+    traverse,
 )
 from bang_tpu_torch.utils.config import SearchParams
 
 
-def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
-    """Batched PQ-traversal search with exact re-rank on the index's device.
-
-    queries: [Q, D] tensor or numpy array. Returns (ids [Q, k] int32,
-    dists [Q, k] f32 squared L2, SearchStats).
-
-    Under entry_mode="sampled" the entries and their worklist seeds come
-    from exact distances to a strided sample (models/entry.py); the walk
-    itself still runs on PQ distances, as in the JAX package."""
+def prepare_inmemory(index: DeviceIndex, queries, params: SearchParams):
+    """The search's start on the index's device: (step, state, queries_f32),
+    the traversal's body and initial state (traversal.start_traversal) and
+    the f32 queries that `finish_inmemory` re-ranks against. Callers that
+    interleave several searches (parallel/sharded.search_data_parallel)
+    step them with traversal.traverse_together."""
     check_params(params)
     assert_exact_float32()
     dev = index.vectors.device
@@ -42,14 +40,36 @@ def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
         queries_f32, index.codebook, index.codes, fused_rows=index.fused_rows
     )
     entry_ids, entry_dists = entry_points(index, queries_f32, params)
-    final = run_traversal(
+    step, state = start_traversal(
         index.adj, distance_fn, index.medoid, q, params.L, params.max_iters,
         params.beam_width, dev, entry_ids=entry_ids, entry_dists=entry_dists,
         use_bloom=params.visited_mode == "bloom",
     )
+    return step, state, queries_f32
+
+
+def finish_inmemory(index: DeviceIndex, queries_f32, final, params: SearchParams):
+    """(ids [Q, k] int32, dists [Q, k] f32, SearchStats) from the final
+    traversal state: the exact re-rank of every expanded node, or the
+    worklist's head when params.rerank is off."""
     if params.rerank:
         ids, dists = rerank_topk(queries_f32, index.vectors, final.visited_ids,
                                  params.k)
     else:
         ids, dists = final.wl_ids[:, : params.k], final.wl_dist[:, : params.k]
     return ids, dists, SearchStats(final.it, final.n_expanded, final.n_dist_comps)
+
+
+def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
+    """Batched PQ-traversal search with exact re-rank on the index's device
+    (prepare_inmemory, traverse, finish_inmemory).
+
+    queries: [Q, D] tensor or numpy array. Returns (ids [Q, k] int32,
+    dists [Q, k] f32 squared L2, SearchStats).
+
+    Under entry_mode="sampled" the entries and their worklist seeds come
+    from exact distances to a strided sample (models/entry.py); the walk
+    itself still runs on PQ distances, as in the JAX package."""
+    step, state, queries_f32 = prepare_inmemory(index, queries, params)
+    final = traverse(step, state, params.max_iters)
+    return finish_inmemory(index, queries_f32, final, params)

@@ -11,7 +11,9 @@ in the reference and DiskANN's ground truth).
 The loop runs on the host and reads `active.any()` back once per
 iteration, as the reference reads its `nextIter` flag (parANN.cu:595);
 removing that sync (CUDA graphs over blocks of iterations) is ROADMAP
-Queue 1 item 13. Two distance functions drive it: PQ table lookup
+Queue 1 item 13. Independent walks (the shards of parallel/sharded.py)
+step together in rounds, with one read of their stacked flags a round
+(`traverse_together`). Two distance functions drive it: PQ table lookup
 (`make_pq_distance_fn`, kernels K1 and K2) and exact L2
 (`make_exact_distance_fn`, kernel K3). Two visited sets filter the
 candidates: the exact mask (ops/visited.exact_new_mask, the default) or the
@@ -198,12 +200,13 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
     return step
 
 
-def run_traversal(adj, distance_fn, medoid: int, q: int, l: int,
-                  max_iters: int, beam: int, device, entry_ids=None,
-                  entry_dists=None, use_bloom: bool = False) -> TraversalState:
-    """Run the traversal; returns the final state. Stops after `max_iters`
-    iterations or when no query has an unvisited worklist entry left.
-    use_bloom: filter with the bloom visited set (ops/bloom.py).
+def start_traversal(adj, distance_fn, medoid: int, q: int, l: int,
+                    max_iters: int, beam: int, device, entry_ids=None,
+                    entry_dists=None, use_bloom: bool = False):
+    """The traversal's start: (step, state), the per-iteration body
+    (make_step) and the initial state, for `traverse` or
+    `traverse_together`. use_bloom: filter with the bloom visited set
+    (ops/bloom.py).
 
     By default every query enters at the shared `medoid`. entry_ids [Q] or
     [Q, P<=beam] int32 (sampled-entry mode, models/entry.py) give per-query
@@ -220,10 +223,55 @@ def run_traversal(adj, distance_fn, medoid: int, q: int, l: int,
         if entry_dists is None:
             raise ValueError("entry_ids requires entry_dists")
         entry = (entry_ids if entry_ids.ndim == 2 else entry_ids[:, None]).to(torch.int32)
-    state = init_state(q, l, max_iters, entry, entry_dists, beam, use_bloom)
+    return step, init_state(q, l, max_iters, entry, entry_dists, beam, use_bloom)
+
+
+def traverse(step, state: TraversalState, max_iters: int) -> TraversalState:
+    """Step until `max_iters` iterations or until no query has an unvisited
+    worklist entry left (one host read of `active.any()` per iteration);
+    returns the final state."""
     while state.it < max_iters and bool(state.active.any()):
         state = step(state)
     return state
+
+
+def _still_live(states, idx, max_iters: int, home) -> list:
+    """The walks of `idx` that step again: those under `max_iters` whose
+    `active.any()` holds, read for all of them at once (their flags stacked
+    on `home`, one host read)."""
+    idx = [i for i in idx if states[i].it < max_iters]
+    if not idx:
+        return []
+    flags = torch.stack([states[i].active.any().to(home) for i in idx]).tolist()
+    return [i for i, live in zip(idx, flags) if live]
+
+
+def traverse_together(walks, max_iters: int, home) -> list:
+    """`traverse` for several independent walks (`(step, state)` pairs, on
+    one device or several), stepped in rounds: each round steps every walk
+    that is still live, then one host read of their stacked flags on `home`
+    decides which step again, where `traverse` would read each walk's flag
+    on its own. A walk that has finished is never stepped again, so every
+    walk takes exactly the iterations, and ends in exactly the state, that
+    `traverse` gives it. Returns the final states in the walks' order."""
+    states = [state for _, state in walks]
+    live = _still_live(states, range(len(walks)), max_iters, home)
+    while live:
+        for i in live:
+            states[i] = walks[i][0](states[i])
+        live = _still_live(states, live, max_iters, home)
+    return states
+
+
+def run_traversal(adj, distance_fn, medoid: int, q: int, l: int,
+                  max_iters: int, beam: int, device, entry_ids=None,
+                  entry_dists=None, use_bloom: bool = False) -> TraversalState:
+    """Run the traversal (start_traversal, then traverse); returns the final
+    state. Stops after `max_iters` iterations or when no query has an
+    unvisited worklist entry left."""
+    step, state = start_traversal(adj, distance_fn, medoid, q, l, max_iters, beam,
+                                  device, entry_ids, entry_dists, use_bloom)
+    return traverse(step, state, max_iters)
 
 
 def make_exact_distance_fn(queries_f32, vectors, nbr_vecs=None,

@@ -195,11 +195,14 @@ def check_aligned(packed) -> None:
 
 
 def route(*tensors) -> str:
-    """'cpu' or 'cuda' for tensors that all sit on one device; raise else."""
+    """'cuda' (launch the kernel) for tensors that all sit on one CUDA
+    device; 'cpu' (the plain version) for tensors on the CPU, or on the
+    `meta` device, which carries shapes and no data (the billion-shape
+    checks); raise else."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
-    return dev.type
+    return "cuda" if dev.type == "cuda" else "cpu"

@@ -23,8 +23,10 @@ two collectives are explicit:
   psum over 'model'        the shard-order sum of [Q, C] partials on one
                            device (parallel/pq_tp.py, parallel/base_tp.py).
 
-A mesh may name one device more than once ([cuda:0] * 4, [cpu] * 8): the
-shares then run one after another on it. That is how the tests drive these
+Every share's walk steps in rounds with the others (models/traversal.
+traverse_together): one host read of all their flags a round, so shares on
+distinct devices run at once. A mesh may name one device more than once
+([cuda:0] * 4, [cpu] * 8): the shares then take turns on it, a step each. That is how the tests drive these
 paths (8 CPU positions, as the JAX tests use 8 virtual CPU devices) and how
 one card runs them. An index is placed once per distinct device. A
 multi-process NCCL backend, for meshes spread over hosts or processes, is
@@ -41,7 +43,9 @@ from bang_tpu_torch.models.traversal import (
     make_exact_distance_fn,
     make_pq_distance_fn,
     rerank_topk,
-    run_traversal,
+    start_traversal,
+    traverse,
+    traverse_together,
 )
 from bang_tpu_torch.utils.config import SearchParams
 
@@ -99,33 +103,52 @@ def psum(parts, dst) -> torch.Tensor:
     return out
 
 
-def _local_search(adj, vectors, codes, fused_rows, codebook, medoid, id_base,
-                  queries, *, l, k, max_iters, use_bloom, beam=1, rerank=True):
-    """Search one shard for one query slice on the shard's device; returns
-    global-id top-k (ids [q, k] int32, dists [q, k] f32).
+def _local_start(adj, vectors, codes, fused_rows, codebook, medoid, queries, *,
+                 l, max_iters, use_bloom, beam=1):
+    """The start of one shard's search for one query slice on the shard's
+    device: (step, state, queries_f32), for traversal.traverse or
+    traverse_together, then `_local_finish`.
 
     PQ shards take the single-device op point: the fused rows when the
     shard has them (K2 on the card), else the scattered codes (K1 on the
     card); the f32 tables on the CPU (traversal.make_pq_distance_fn).
     Exact shards run the scattered exact traversal (JAX's sharded exact
-    path has no fused exact rows). `rerank` is honoured; exact shards are
-    always re-ranked, as in JAX. The JAX function's `norms` and
+    path has no fused exact rows). The JAX function's `norms` and
     `nbr_codes` are not taken: no port path reads them."""
-    q = queries.shape[0]
     queries_f32 = queries.float()
     if codes is not None:
         distance_fn = make_pq_distance_fn(queries_f32, codebook, codes,
                                           fused_rows=fused_rows)
     else:
         distance_fn = make_exact_distance_fn(queries_f32, vectors)
-    final = run_traversal(adj, distance_fn, medoid, q, l, max_iters, beam,
-                          queries.device, use_bloom=use_bloom)
-    if rerank or codes is None:
+    step, state = start_traversal(adj, distance_fn, medoid, queries.shape[0], l,
+                                  max_iters, beam, queries.device, use_bloom=use_bloom)
+    return step, state, queries_f32
+
+
+def _local_finish(vectors, id_base, queries_f32, final, *, k, rerank, exact):
+    """One shard's global-id top-k from its final state: (ids [q, k] int32,
+    dists [q, k] f32). `rerank` is honoured; exact shards are always
+    re-ranked, as in JAX."""
+    if rerank or exact:
         ids, dists = rerank_topk(queries_f32, vectors, final.visited_ids, k)
     else:
         ids, dists = final.wl_ids[:, :k], final.wl_dist[:, :k]
     # INVALID_ID padding must not collide with real global ids after offset
     return torch.where(ids < 0, ids, ids + id_base), dists
+
+
+def _local_search(adj, vectors, codes, fused_rows, codebook, medoid, id_base,
+                  queries, *, l, k, max_iters, use_bloom, beam=1, rerank=True):
+    """Search one shard for one query slice on its own, start to finish
+    (the per-shard loop that search_sharded's rounds reproduce); returns
+    global-id top-k (ids [q, k] int32, dists [q, k] f32)."""
+    step, state, queries_f32 = _local_start(
+        adj, vectors, codes, fused_rows, codebook, medoid, queries, l=l,
+        max_iters=max_iters, use_bloom=use_bloom, beam=beam)
+    final = traverse(step, state, max_iters)
+    return _local_finish(vectors, id_base, queries_f32, final, k=k, rerank=rerank,
+                         exact=codes is None)
 
 
 def merge_topk(all_ids: torch.Tensor, all_dists: torch.Tensor, k: int):
@@ -152,15 +175,33 @@ def _query_rows(mesh: Mesh, queries):
     return qt.chunk(n_data) if n_data > 1 else (qt,)
 
 
+def _refuse_sampled(params: SearchParams, fn: str) -> None:
+    """The sharded searches enter at the medoid: JAX's ignore entry_mode
+    (its data-parallel search calls the jitted in-memory search without
+    entry samples), so sampled entry would return other ids than the
+    reference's. Refused rather than ignored."""
+    if params.entry_mode == "sampled":
+        raise ValueError(f"{fn} enters every shard at its medoid; "
+                         "entry_mode='sampled' is served by the single-device "
+                         "searches only")
+
+
 def search_sharded(mesh: Mesh, sharded_index, queries, params: SearchParams):
     """Search a node-sharded index (parallel/partition.ShardedIndex) over
     the mesh.
 
     Queries are split over 'data', the shards over 'model'; each (row,
-    shard) search runs on its device, then each row's per-shard lists are
-    gathered on the row's first device and merged. Returns (ids [Q, k]
-    int32 global ids, dists [Q, k] f32) on mesh.home."""
+    shard) search runs on its device. All of them step together in rounds
+    (traversal.traverse_together: one host read of every still-live
+    shard's flag per round, so shards on distinct devices run at once),
+    each taking exactly the iterations it would take alone. Then each
+    row's per-shard lists are gathered on the row's first device and
+    merged. Every shard's state is held at once (in bloom mode a
+    [q, 399,889] u8 filter each). Returns (ids [Q, k] int32 global ids,
+    dists [Q, k] f32) on mesh.home. entry_mode="sampled" raises
+    ValueError."""
     check_params(params)
+    _refuse_sampled(params, "search_sharded")
     assert_exact_float32()
     si = sharded_index
     n_model = mesh.shape["model"]
@@ -168,17 +209,25 @@ def search_sharded(mesh: Mesh, sharded_index, queries, params: SearchParams):
         raise ValueError(f"index has {si.n_shards} shards, mesh 'model' axis "
                          f"{n_model}")
     use_bloom = params.visited_mode == "bloom"
-    out_ids, out_dists = [], []
+    walks, ends = [], []
     for row, qs in zip(mesh.devices, _query_rows(mesh, queries)):
-        ids, dists = [], []
         for s, dev in enumerate(row):
             sh = si.shard(s, dev)
-            i, d = _local_search(
-                sh.adj, sh.vectors, sh.codes, sh.fused_rows, sh.codebook,
-                sh.medoid, sh.id_base, qs.to(dev),
-                l=params.L, k=params.k, max_iters=params.max_iters,
-                use_bloom=use_bloom, beam=params.beam_width, rerank=params.rerank,
-            )
+            step, state, queries_f32 = _local_start(
+                sh.adj, sh.vectors, sh.codes, sh.fused_rows, sh.codebook, sh.medoid,
+                qs.to(dev), l=params.L, max_iters=params.max_iters,
+                use_bloom=use_bloom, beam=params.beam_width)
+            walks.append((step, state))
+            ends.append((sh, queries_f32))
+    finals = traverse_together(walks, params.max_iters, mesh.home)
+    out_ids, out_dists = [], []
+    for r, row in enumerate(mesh.devices):
+        ids, dists = [], []
+        for s in range(n_model):
+            sh, queries_f32 = ends[r * n_model + s]
+            i, d = _local_finish(sh.vectors, sh.id_base, queries_f32,
+                                 finals[r * n_model + s], k=params.k,
+                                 rerank=params.rerank, exact=sh.codes is None)
             ids.append(i)
             dists.append(d)
         i, d = merge_topk(all_gather(ids, row[0]), all_gather(dists, row[0]),
@@ -191,19 +240,27 @@ def search_sharded(mesh: Mesh, sharded_index, queries, params: SearchParams):
 def search_data_parallel(mesh: Mesh, index, queries, params: SearchParams):
     """Query-data-parallel search of a replicated in-memory index
     (models/index.DeviceIndex): each data row searches its query slice with
-    models/inmemory.search_inmemory on a replica of the index on its first
-    device (one replica per distinct device; the JAX program also repeats
-    the search along 'model', which gives the same answers). Returns (ids
-    [Q, k] int32, dists [Q, k] f32) on mesh.home."""
-    from bang_tpu_torch.models.inmemory import search_inmemory
+    models/inmemory's search on a replica of the index on its first device
+    (one replica per distinct device; the JAX program also repeats the
+    search along 'model', which gives the same answers). The rows step
+    together in rounds, as search_sharded's shards do. Returns (ids [Q, k]
+    int32, dists [Q, k] f32) on mesh.home. entry_mode="sampled" raises
+    ValueError."""
+    from bang_tpu_torch.models.inmemory import finish_inmemory, prepare_inmemory
 
-    replicas = {}
-    out_ids, out_dists = [], []
+    _refuse_sampled(params, "search_data_parallel")
+    replicas, walks, ends = {}, [], []
     for row, qs in zip(mesh.devices, _query_rows(mesh, queries)):
         dev = row[0]
         if dev not in replicas:
             replicas[dev] = index.to(dev)
-        ids, dists, _stats = search_inmemory(replicas[dev], qs.to(dev), params)
+        step, state, queries_f32 = prepare_inmemory(replicas[dev], qs.to(dev), params)
+        walks.append((step, state))
+        ends.append((replicas[dev], queries_f32))
+    finals = traverse_together(walks, params.max_iters, mesh.home)
+    out_ids, out_dists = [], []
+    for (replica, queries_f32), final in zip(ends, finals):
+        ids, dists, _stats = finish_inmemory(replica, queries_f32, final, params)
         out_ids.append(ids.to(mesh.home))
         out_dists.append(dists.to(mesh.home))
     return torch.cat(out_ids), torch.cat(out_dists)

@@ -1,9 +1,21 @@
-"""Counterparts of the JAX package's Pallas layout probes in `scripts/`.
+"""Counterparts of the JAX package's `scripts/` (and of the bundle tools of
+`bench.py`).
 
-Each module has the name of its JAX script and defines that script's TPU
-kernels under their own names, as wrappers over the port's kernels:
-`lookup_packed` (K1's kernel) and K5-K6 (ops/probe_kernels.py), K1-K2
-(ops/pq_kernels.py) and K3 (ops/exact_kernels.py):
+Large bundles and their evaluation, each with a `main(...)` that tests
+call at a small size:
+
+  bundles                  bench.py's prefix_for, discover_big_base,
+                           build_bundle, load_bundle
+  build_100m               the resumable five-stage sharded build
+  build_10m_source, build_10m_tuned, build_10m_tuned_direct
+                           the 10M bundles
+  run_eval                 one bundle, one variant, an L grid -> JSON
+
+The Pallas layout probes: each module has the name of its JAX script and
+defines that script's TPU kernels under their own names, as wrappers over
+the port's kernels: `lookup_packed` (K1's kernel) and K5-K6
+(ops/probe_kernels.py), K1-K2 (ops/pq_kernels.py) and K3
+(ops/exact_kernels.py):
 
   exp_lookup        lookup_v2 (K1) beside v1, K1 itself; the aligned-row
                     gather study (K6)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (bang_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repo root; needs one CUDA card
+    python3 chip_smoke.py                   # from the repo root; one CUDA card
+    python3 chip_smoke.py --scale 10000000  # instead: the scale run (scale_run)
 
 Phases, each printing progress; any failure raises and exits non-zero:
   1. device   — require CUDA; print the card's name and power limit
@@ -132,6 +133,11 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 >= 98% of slots, recall@10 >= 90, K1 launched 4 times a step
                 (and 4 times per sub-batch's sampled entries); then
                 entry.dryrun_multichip(4). Walls, iterations and peak memory.
+                At each fused L, search_sharded (its shards stepped together
+                in rounds, one host read a round) beside the per-shard loop
+                (each shard searched to its end in turn), in the order
+                rounds, loop, loop, rounds: ids and every shard's iterations
+                identical, both walls.
  15. sharded build — formats/bigbuild.py: BlockGen at N=1M x 128 u8 on the
                 card, build_sharded_vamana (4 shards, overlap 2, R=64, l_build
                 48, batch 4096, one pass; no kernel), k-means and the
@@ -141,6 +147,25 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 compute_groundtruth's distances on every slot; PQ (m=64,
                 trained on 16,384 points) encoded on the card; in-memory search
                 (K2) over the merged graph at L in {64, 128}, recall@10 >= 90.
+ 16. scale    — bang_tpu_torch/scripts/build_100m.py (scripts/build_100m.py's
+                recipe: R=32, m=32, l_build 24, one pass, overlap 2, batch
+                16384) at N=262,144 in 4 shards, block 65,536, PQ trained on
+                16,384 points, 10K queries, into a temp dir, each shard's peak
+                beside shard_build_hbm_bytes; run again: every stage skipped.
+                BANGSearch("base") on that bundle memory-mapped (the default)
+                and read into RAM at L in {30, 60, 90}: ids and steps
+                identical, K1 once a device step, recall@10 >= 90 at the best
+                L. Then run_eval.py's base branch once (--mmap).
+--scale N     — not a phase: build_100m at N in 4 shards (the rest of its
+                recipe as it is), each shard's peak beside the model; base
+                through run_eval.py memory-mapped and in RAM at L in {30, 60,
+                90, 128, 180, 256} (extra_iters 24, 8 sub-batches, each with
+                its sampled-entry probe); a fresh mapping's first call against
+                its second; the base profile at the in-RAM row's L; in-memory
+                through run_eval.py; K1 and K2 at the bundle's widths against
+                their plain versions, timed, with bounds. Results in
+                <out>/scale_<N>*.json (--out, bench_data/scale by default);
+                no kernels line, no "ok" line.
 Each probe script and each search phase zeroes every launch count just
 before it and reads them just after: the kernels of its path must have
 launched and no other. The second-to-last line is a JSON object describing
@@ -196,12 +221,26 @@ SHARD_L = (128, 256)
 EXACT_SHARD_L = 256
 TP_BASE_L = (30, 90)
 KNN_CHECK_N = 20_000  # the card's kNN graph against numpy's on this many points
+# phase 16: scripts/build_100m.py's recipe (R=32, m=32, l_build 24, one pass,
+# overlap 2, batch 16384) cut to 262,144 points in 4 shards, the generator's
+# block to 65,536 and the PQ training sample to PQ_SAMPLE; base at these Ls
+SCALE_N, SCALE_BLOCK, SCALE_SHARDS = 262_144, 65_536, 4
+SCALE_R, SCALE_M, SCALE_LBUILD, SCALE_BATCH = 32, 32, 24, 16384
+SCALE_L = (30, 60, 90)
+# `--scale N`: build_100m at N in 4 shards (the rest of its recipe as it is),
+# then base at these Ls (run_eval's --extra 24, 8 sub-batches) and in-memory
+SCALE_RUN_L = (30, 60, 90, 128, 180, 256)
+SCALE_RUN_EXTRA = 24
+SCALE_RUN_IM_L = (10, 16, 24, 32, 48, 64, 96, 128)
+SCALE_RUN_FIRST_TOUCH_L = 60
 # K1 at the code widths the sharded paths launch it with: (label, Q, C, m)
 K1_WIDTHS = (
     ("the chunk-sharded base, m/4 chunks a shard", Q // BASE_PIPELINE, BASE_BEAM * R,
      M // SHARDS),
     ("the dry run's base, 1 chunk a shard", 8, 64, 1),
     ("the dry run's node shards", 8, 24, 8),
+    ("phase 16's base sub-batch, R=32 m=32", Q // BASE_PIPELINE, BASE_BEAM * SCALE_R,
+     SCALE_M),
 )
 # phase 15: the sharded build's dataset, the PQ training sample, the Ls
 BIG_N = 1_000_000
@@ -712,48 +751,15 @@ def probe_scripts(totals):
 
 def build_bundle(prefix, dev, n=N, d=D, q=Q, r=R, m=M):
     """The bench's headline bundle (bench.py build_bundle, graph='vamana'),
-    built with the port's builders on `dev`; returns stage seconds."""
-    from bang_tpu_torch.formats import accel, synthetic, vamana
-    from bang_tpu_torch.formats.bin_io import save_bin, save_truthset
-    from bang_tpu_torch.formats.graph import GraphIndex, save_graph_index
-    from bang_tpu_torch.formats.pq import save_pq
+    built with the port's builders on `dev` (scripts/bundles.py); returns
+    stage seconds."""
+    from bang_tpu_torch.scripts import bundles
 
-    t = {}
-    t0 = time.perf_counter()
-    n_clusters = max(64, min(4096, n // 1000))
-    data = synthetic.make_clustered_data(n, d, n_clusters=n_clusters,
-                                         dtype=np.uint8, seed=0)
-    rng = np.random.default_rng(1)
-    queries = data[rng.integers(0, n, q)].astype(np.float32)
-    queries += rng.normal(0, 2.0, queries.shape).astype(np.float32)
-    queries = np.clip(np.rint(queries), 0, 255).astype(np.uint8)
-    t["data"] = time.perf_counter() - t0
-
-    def stage(name, fn):
-        s = time.perf_counter()
-        out = fn()
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t[name] = time.perf_counter() - s
-        log(f"bundle {name} {t[name]:.1f}s")
-        return out
-
-    gt_ids, gt_dists = stage("groundtruth", lambda: accel.compute_groundtruth(
-        data, queries.astype(np.float32), 100, dev))
-    adj, degrees, medoid = stage("graph", lambda: vamana.build_vamana_graph(
-        data, r, dev, **VAMANA))
-    pq = stage("pq_train", lambda: synthetic.train_pq(data, m, seed=0))
-    pq.codes = stage("pq_encode", lambda: accel.encode_pq(data, pq, dev))
-
-    def save():
-        save_graph_index(prefix, GraphIndex(data, adj, degrees, medoid))
-        save_pq(prefix, pq)
-        save_bin(prefix + "_query.bin", queries)
-        save_truthset(prefix + "_gt.bin", gt_ids, gt_dists)
-
-    stage("save", save)
-    t["total"] = time.perf_counter() - t0
-    log(f"bundle N={n} D={d} R={r} m={m} Q={q} built in {t['total']:.1f}s")
+    t = bundles.build_bundle(prefix, n, d, r, m, "vamana", q, seed=VAMANA["seed"],
+                             l_build=VAMANA["l_build"], build_batch=VAMANA["batch"],
+                             device=dev)
+    log(f"bundle N={n} D={d} R={r} m={m} Q={q} built in {t['total']:.1f}s: "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in t.items()))
     return t
 
 
@@ -968,9 +974,10 @@ def _busy_ms(prof, stage_names):
 
 
 def run_base(prefix, dev, l_values, n_pipeline_batches=BASE_PIPELINE,
-             entry_mode="medoid", visited_mode="exact"):
+             entry_mode="medoid", visited_mode="exact", mmap=False):
     """BANGSearch("base") over `l_values` at bench.py::sweep_base's beam and
-    extra_iters, the graph read into RAM, ENABLE_GPU_STATS on; one row per L
+    extra_iters, the graph read into RAM (mmap=True: memory-mapped, the
+    facade's default), ENABLE_GPU_STATS on; one row per L
     (the returned ids, device steps, readback waits, stage ms, the query
     call's peak memory). Returns
     (rows, steps): every device step of these calls, the warm-ups of
@@ -984,12 +991,14 @@ def run_base(prefix, dev, l_values, n_pipeline_batches=BASE_PIPELINE,
     gt_ids, gt_dists = load_truthset(prefix + "_gt.bin")
     s = BANGSearch("base", device=dev)
     t0 = time.perf_counter()
-    s.bang_load(prefix, mmap=False, n_pipeline_batches=n_pipeline_batches)
+    s.bang_load(prefix, mmap=mmap, n_pipeline_batches=n_pipeline_batches)
     searcher = s._searcher
     vectors = searcher.raw[:, : searcher.vec_bytes]  # u8 data: the vectors' bytes
-    label = f"base pipeline={n_pipeline_batches} {entry_mode} {visited_mode}"
+    label = (f"base pipeline={n_pipeline_batches} {entry_mode} {visited_mode}"
+             + " mmap" * mmap)
     log(f"bang_load base in {time.perf_counter() - t0:.1f}s: "
-        f"{searcher.raw.nbytes / 1e6:.1f} MB of records in host RAM, "
+        f"{searcher.raw.nbytes / 1e6:.1f} MB of records "
+        f"{'memory-mapped' if mmap else 'in host RAM'}, "
         f"{searcher.codes.numel() / 1e6:.1f} MB of codes on the card")
     rows, steps = [], 0
     for L in l_values:
@@ -1069,8 +1078,9 @@ def host_gather_alone(prefix, dev):
     return out
 
 
-def profile_base(prefix, dev, L):
-    """BANGSearch("base") at L as in phase 10: three timed calls, then one
+def profile_base(prefix, dev, L, extra=BASE_EXTRA):
+    """BANGSearch("base") at L as in phase 10 (or at `extra` extra_iters):
+    three timed calls, then one
     under torch.profiler with each step stage (PROFILE_STAGES, models/base)
     and the code gather of the PQ lookup in profiler ranges. Prints kernel
     ms by name and by range, the stage timers of the profiled call, the
@@ -1100,7 +1110,7 @@ def profile_base(prefix, dev, L):
     def ranged_tables(sub_queries):  # what _prepare_tables makes, over RangedCodes
         return base.make_pq_distance_fn(sub_queries, searcher.codebook, RangedCodes())
 
-    s.bang_set_searchparams(K, L, beam_width=BASE_BEAM, extra_iters=BASE_EXTRA,
+    s.bang_set_searchparams(K, L, beam_width=BASE_BEAM, extra_iters=extra,
                             capabilities=ENABLE_GPU_STATS)
     s.bang_alloc(len(queries))
     label = f"profile base L={L}"
@@ -1127,7 +1137,8 @@ def profile_base(prefix, dev, L):
     total, stages, kernels = _read_profile(prof, label, names)
     busy = _busy_ms(prof, names)
     # K1 per launch at a sub-batch's shape against its bound there
-    q_b, c, m = Q // BASE_PIPELINE, BASE_BEAM * R, M
+    q_b = len(queries) // BASE_PIPELINE
+    c, m = BASE_BEAM * searcher.meta.degree, searcher.codebook.num_chunks
     k1_ms, k1_n = next((ms, n) for ms, n, key in kernels if "pq_lookup_kernel" in key)
     bound = (q_b * m * 512 + q_b * c * m + q_b * c * 4) / HBM_BYTES_PER_S * 1e3
     gather_ms, gather_n = stages["code_gather"]
@@ -1139,6 +1150,11 @@ def profile_base(prefix, dev, L):
         f"peak {peak / 1e9:.2f} GB")
     s.bang_unload()
     torch.cuda.empty_cache()
+    return {"L": L, "walls_s": walls, "profiled_wall_s": wall,
+            "steps": searcher.last_n_steps, "stage_ms": dict(searcher.timers.ms),
+            "kernel_ms": total, "busy_ms": busy, "busy_share": busy / (wall * 1e3),
+            "k1_ms": k1_ms / k1_n, "k1_bound_ms": bound,
+            "code_gather_ms": gather_ms / gather_n, "peak_gb": peak / 1e9}
 
 
 def phase_base(prefix, dev, totals):
@@ -1461,22 +1477,77 @@ def phase_streaming(dev, totals):
 
 @contextlib.contextmanager
 def _shard_iters():
-    """Record the iterations of every shard search in parallel/sharded (its
-    run_traversal, wrapped); yields the list they are appended to."""
+    """Record the iterations of every shard search in parallel/sharded: of
+    search_sharded's rounds (traverse_together, wrapped) and of the
+    per-shard loop (traverse, wrapped); yields the list they are appended
+    to."""
     from bang_tpu_torch.parallel import sharded
 
-    iters, orig = [], sharded.run_traversal
+    iters, together, alone = [], sharded.traverse_together, sharded.traverse
 
-    def recorded(*args, **kwargs):
-        state = orig(*args, **kwargs)
+    def together_recorded(*args, **kwargs):
+        states = together(*args, **kwargs)
+        iters.extend(state.it for state in states)
+        return states
+
+    def alone_recorded(*args, **kwargs):
+        state = alone(*args, **kwargs)
         iters.append(state.it)
         return state
 
-    sharded.run_traversal = recorded
+    sharded.traverse_together, sharded.traverse = together_recorded, alone_recorded
     try:
         yield iters
     finally:
-        sharded.run_traversal = orig
+        sharded.traverse_together, sharded.traverse = together, alone
+
+
+def _per_shard_loop(mesh, si, queries, params):
+    """The shards searched one after another, each to its end
+    (parallel/sharded._local_search, one host read per shard per iteration),
+    then merged: what search_sharded computed before its shards stepped
+    together in rounds, and must still return."""
+    from bang_tpu_torch.parallel import sharded
+
+    row = mesh.devices[0]
+    parts = []
+    for s, dev in enumerate(row):
+        sh = si.shard(s, dev)
+        parts.append(sharded._local_search(
+            sh.adj, sh.vectors, sh.codes, sh.fused_rows, sh.codebook, sh.medoid,
+            sh.id_base, torch.as_tensor(queries).to(dev), l=params.L, k=params.k,
+            max_iters=params.max_iters, use_bloom=False, beam=params.beam_width))
+    return sharded.merge_topk(sharded.all_gather([p[0] for p in parts], row[0]),
+                              sharded.all_gather([p[1] for p in parts], row[0]),
+                              params.k)
+
+
+def _rounds_against_loop(mesh, si, queries, L, ids_rounds, iters_rounds, wall_rounds):
+    """search_sharded (its rounds, already run once: ids, shard iterations,
+    wall) against the per-shard loop at L, in the order rounds, loop, loop,
+    rounds: ids and every shard's iterations identical; both walls."""
+    from bang_tpu_torch.parallel.sharded import search_sharded
+    from bang_tpu_torch.utils.config import SearchParams
+
+    params = SearchParams(L=L, k=K, beam_width=BEAM_EXTRA["inmemory"][0],
+                          extra_iters=BEAM_EXTRA["inmemory"][1])
+    walls = {"rounds": [wall_rounds], "loop": []}
+    for kind in ("loop", "loop", "rounds"):
+        fn = _per_shard_loop if kind == "loop" else search_sharded
+        with _shard_iters() as iters:
+            (ids, _), wall, _ = _timed(lambda: fn(mesh, si, queries, params))
+        walls[kind].append(wall)
+        ids = _host_ids(ids)
+        if not np.array_equal(ids, ids_rounds) or iters != iters_rounds:
+            raise AssertionError(
+                f"sharded L={L}: the {kind} differs from search_sharded's first run: "
+                f"ids on {int((ids != ids_rounds).any(axis=1).sum())} queries, shard "
+                f"iterations {iters} vs {iters_rounds}")
+    log(f"sharded fused L={L}: rounds (search_sharded) walls "
+        + " / ".join(f"{w:.4f}" for w in walls["rounds"]) + " s, per-shard loop "
+        + " / ".join(f"{w:.4f}" for w in walls["loop"]) + f" s; ids and shard "
+        f"iterations {iters_rounds} identical")
+    return walls
 
 
 def _timed(fn):
@@ -1656,9 +1727,14 @@ def phase_sharded(prefix, dev, totals, kern, base_rows):
 
     rows, fused_ids = [], {}
     for L in SHARD_L:
+        def fused_rows():
+            ids, dists, row = _sharded_rows(mesh, si, queries, gt, L, "fused")
+            row["walls"] = _rounds_against_loop(mesh, si, queries, L, ids, row["iters"],
+                                                row["wall_s"])
+            return ids, dists, row
+
         ids_f, d_f, row_f = counted(f"sharded fused L={L}", {"frontier_lookup"},
-                                    lambda: _sharded_rows(mesh, si, queries, gt, L,
-                                                          "fused"), totals)
+                                    fused_rows, totals)
         ids_s, _, row_s = counted(f"sharded scattered L={L}", {"pq_lookup"},
                                   lambda: _sharded_rows(mesh, si_sc, queries, gt, L,
                                                         "scattered"), totals)
@@ -1743,6 +1819,46 @@ def phase_sharded(prefix, dev, totals, kern, base_rows):
     return best
 
 
+@contextlib.contextmanager
+def _shard_peaks():
+    """Record each shard build's peak device memory: formats/vamana.
+    build_vamana_graph wrapped, its peak above what was held before it (the
+    shard's vectors included); yields the list of (points, bytes)."""
+    from bang_tpu_torch.formats import vamana
+
+    peaks, build_vamana = [], vamana.build_vamana_graph
+
+    def measured(vectors, *args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = build_vamana(vectors, *args, **kwargs)
+        torch.cuda.synchronize()
+        peaks.append((vectors.shape[0], torch.cuda.max_memory_allocated() - before
+                      + vectors.numel()))
+        return out
+
+    vamana.build_vamana_graph = measured
+    try:
+        yield peaks
+    finally:
+        vamana.build_vamana_graph = build_vamana
+
+
+def _log_shard_peaks(label, peaks, r, batch, l_build):
+    """Each shard's measured peak beside formats/bigbuild.
+    shard_build_hbm_bytes; returns [(points, measured, model), ...]."""
+    from bang_tpu_torch.formats import bigbuild
+
+    out = []
+    for n_s, peak in peaks:
+        model = bigbuild.shard_build_hbm_bytes(n_s, D, r, batch, l_build)
+        log(f"{label} shard of {n_s} points: measured peak {peak / 1e9:.3f} GB, "
+            f"shard_build_hbm_bytes {model / 1e9:.3f} GB ({peak / model:.2f}x)")
+        out.append((n_s, peak, model))
+    return out
+
+
 def phase_bigbuild(dev, totals):
     """Phase 15: BlockGen, the sharded Vamana build, the int8 ground truth
     and a search over the merged graph."""
@@ -1760,32 +1876,13 @@ def phase_bigbuild(dev, totals):
         log(f"bigbuild {name} {t[name]:.2f}s (peak {peak:.2f} GB)")
         return out
 
-    from bang_tpu_torch.formats import vamana
-
-    shard_peaks, build_vamana = [], vamana.build_vamana_graph
-
-    def measured(vectors, *args, **kwargs):
-        """build_vamana_graph, its peak device memory above what was held
-        before it (the shard's vectors included) recorded per shard."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        out = build_vamana(vectors, *args, **kwargs)
-        torch.cuda.synchronize()
-        shard_peaks.append((vectors.shape[0], torch.cuda.max_memory_allocated() - before
-                            + vectors.numel()))
-        return out
-
     def build():
         gen = stage("blockgen", lambda: bigbuild.BlockGen(BIG_N, D, seed=0, device=dev))
-        vamana.build_vamana_graph = measured
-        try:
+        with _shard_peaks() as shard_peaks:
             adj, degrees, assignment = stage("sharded_vamana", lambda: (
                 bigbuild.build_sharded_vamana(
                     gen, r=R, l_build=VAMANA["l_build"], n_shards=SHARDS, overlap=2,
                     batch=VAMANA["batch"], n_passes=1, alpha=VAMANA["alpha"], seed=0)))
-        finally:
-            vamana.build_vamana_graph = build_vamana
         centers = bigbuild.kmeans_device(gen.gen_block(0)[: 1 << 21], SHARDS, iters=12,
                                          seed=1)
         if not np.array_equal(bigbuild.assign_shards(gen, centers, 2)[0], assignment):
@@ -1796,11 +1893,7 @@ def phase_bigbuild(dev, totals):
             f"over {BIG_N}); degrees "
             f"mean {degrees.mean():.2f} min {degrees.min()}; budget "
             f"{bigbuild._budget(dev) / 1e9:.1f} GB")
-        for n_s, peak in shard_peaks:
-            model = bigbuild.shard_build_hbm_bytes(n_s, D, R, VAMANA["batch"],
-                                                   VAMANA["l_build"])
-            log(f"bigbuild shard of {n_s} points: measured peak {peak / 1e9:.3f} GB, "
-                f"shard_build_hbm_bytes {model / 1e9:.3f} GB ({peak / model:.2f}x)")
+        _log_shard_peaks("bigbuild", shard_peaks, R, VAMANA["batch"], VAMANA["l_build"])
         return gen, adj, degrees
 
     gen, adj, degrees = counted("bigbuild build", set(), build, totals)
@@ -1844,6 +1937,154 @@ def phase_bigbuild(dev, totals):
     log(f"bigbuild: stage seconds " + ", ".join(f"{k} {v:.2f}" for k, v in t.items()))
     torch.cuda.empty_cache()
     return best
+
+
+def phase_scale(dev, totals):
+    """Phase 16: build_100m at SCALE_N, run again (every stage skipped), base
+    on its bundle memory-mapped and read into RAM (ids identical, K1 once a
+    step), and run_eval's base branch once."""
+    from bang_tpu_torch.scripts import build_100m, run_eval
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as tmp:
+        kw = dict(n=SCALE_N, r=SCALE_R, m=SCALE_M, n_shards=SCALE_SHARDS,
+                  l_build=SCALE_LBUILD, n_passes=1, batch=SCALE_BATCH, block=SCALE_BLOCK,
+                  pq_sample=PQ_SAMPLE, n_queries=Q, cache=tmp, device=dev)
+
+        def build():
+            with _shard_peaks() as peaks:
+                out = build_100m.main(**kw)
+            _log_shard_peaks("scale build", peaks, SCALE_R, SCALE_BATCH, SCALE_LBUILD)
+            return out
+
+        prefix, ran = counted("scale build", set(), build, totals)
+        log("scale build: stage seconds "
+            + ", ".join(f"{k} {v:.2f}" for k, v in ran.items()))
+        if list(ran) != list(build_100m.STAGES):
+            raise AssertionError(f"scale build: ran {list(ran)}, not every stage")
+        again = build_100m.main(**kw)[1]
+        if again:
+            raise AssertionError(f"scale build, second run: ran {list(again)}")
+        log("scale build, second run: every stage skipped")
+
+        rows = {}
+        for mmap in (True, False):
+            rows[mmap], steps = counted(
+                f"scale base mmap={mmap}", {"pq_lookup"},
+                lambda: run_base(prefix, dev, SCALE_L, mmap=mmap), totals)
+            _k1_per_step(f"scale base mmap={mmap}", steps)
+        for a, b in zip(rows[True], rows[False]):
+            same = (a["ids"] == b["ids"]).all(axis=1)
+            if not same.all() or a["steps"] != b["steps"]:
+                raise AssertionError(f"scale base L={a['L']}: memory-mapped ids differ "
+                                     f"from the in-RAM run's on {int((~same).sum())} "
+                                     f"queries, steps {a['steps']} vs {b['steps']}")
+        best = _best(rows[True], "scale base mmap")
+        log(f"scale base: memory-mapped ids and steps identical to the in-RAM run's at "
+            f"L={list(SCALE_L)}; best L={best['L']} recall@10 {best['recall']:.2f}")
+
+        out = os.path.join(tmp, "run_eval_base.json")
+        row = counted("scale run_eval", {"pq_lookup"}, lambda: run_eval.main(
+            ["--prefix", prefix, "--variant", "base", "--grid", *map(str, SCALE_L),
+             "--mmap", "--out", out, "--device", dev.type]), totals)
+        log(f"scale run_eval base: L={row['L']} recall@10 {row['recall']:.2f} qps_wall "
+            f"{row['qps_wall']:.1f}, steps {row['n_device_steps']}, device step "
+            f"{row['device_step_ms']} ms, pipeline speedup "
+            f"{row['pipeline_speedup']:.3f}; device {row['device']}")
+    return best
+
+
+def scale_run(dev, n, out_dir):
+    """`--scale N` (not a phase of the default run): build_100m at N in 4
+    shards, each shard's peak beside shard_build_hbm_bytes; base through
+    run_eval memory-mapped and in RAM (each with its sampled-entry probe)
+    at SCALE_RUN_L; the first call against the second under mmap; the base
+    profile at the in-RAM row's L; in-memory through run_eval at
+    SCALE_RUN_IM_L; K1 and K2 at this bundle's widths against their plain
+    versions, timed, with bounds. Writes <out_dir>/scale_<n>*.json."""
+    from bang_tpu_torch.models.base import BaseVariantSearcher
+    from bang_tpu_torch.ops import pq_kernels as pk
+    from bang_tpu_torch.scripts import build_100m, run_eval
+    from bang_tpu_torch.scripts import _common as cm
+    from bang_tpu_torch.scripts.bundles import load_bundle
+    from bang_tpu_torch.utils.config import SearchParams
+
+    os.makedirs(out_dir, exist_ok=True)
+    result = {"n": n, "shards": 4}
+    t0 = time.perf_counter()
+    with _shard_peaks() as peaks:
+        prefix, result["stages_s"] = build_100m.main(n=n, n_shards=4, device=dev)
+    result["build_s"] = time.perf_counter() - t0
+    result["shard_peaks"] = _log_shard_peaks("scale build", peaks, SCALE_R, SCALE_BATCH,
+                                             SCALE_LBUILD)
+    log(f"scale build N={n}: stage seconds {result['stages_s']}")
+    counts = {}
+
+    def evaluated(label, args):
+        pk.reset_launch_counts()
+        out = os.path.join(out_dir, f"scale_{n}_{label}.json")
+        row = run_eval.main(["--prefix", prefix, "--out", out, "--device", dev.type,
+                             *args])
+        counts[label] = {k.__name__: k.launches for k in pk.KERNELS}
+        log(f"scale {label}: launches {counts[label]}")
+        return row
+
+    base = ["--variant", "base", "--grid", *map(str, SCALE_RUN_L), "--beam",
+            str(BASE_BEAM), "--extra", str(SCALE_RUN_EXTRA), "--n-pipeline",
+            str(BASE_PIPELINE), "--probe-sampled-entry"]
+    result["base_mmap"] = evaluated("base_mmap", base + ["--mmap"])
+    result["base_ram"] = evaluated("base_ram", base + ["--no-mmap"])
+
+    queries = load_bundle(prefix, Q)[0]
+    searcher = BaseVariantSearcher(prefix, BASE_PIPELINE, mmap=True, device=dev)
+    params = SearchParams(L=SCALE_RUN_FIRST_TOUCH_L, k=K, beam_width=BASE_BEAM,
+                          extra_iters=SCALE_RUN_EXTRA)
+    walls = []
+    for _ in range(2):  # a fresh mapping's first call, then the second
+        t1 = time.perf_counter()
+        searcher.search(queries, params)
+        walls.append(time.perf_counter() - t1)
+    result["mmap_first_and_second_call_s"] = walls
+    log(f"scale base mmap L={params.L}: first call {walls[0]:.4f} s, second "
+        f"{walls[1]:.4f} s")
+    del searcher
+    result["profile_base"] = profile_base(prefix, dev, result["base_ram"]["L"],
+                                          extra=SCALE_RUN_EXTRA)
+    torch.cuda.empty_cache()
+    result["inmemory"] = evaluated("inmemory", ["--variant", "inmemory", "--grid",
+                                                *map(str, SCALE_RUN_IM_L)])
+    result["launches"] = counts
+    torch.cuda.empty_cache()
+
+    kern = {name: {"max_abs_err": 0.0} for name in ("pq_lookup", "frontier_lookup")}
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q_b, c, m = Q // BASE_PIPELINE, BASE_BEAM * SCALE_R, SCALE_M
+    packed = pk.pack_tables(cm.tables(gen, q_b, m, dev))
+    codes = cm.u8(gen, (q_b, c, m), dev)
+    kern["pq_lookup"]["max_abs_err"] = cm.dist_err(
+        "pq_lookup", pk.pq_lookup(packed, codes), pk.lookup_packed_plain(packed, codes))
+    label = f"base sub-batch Q={q_b} C={c} m={m}"
+    _time_pair(kern, "pq_lookup", label, lambda: pk.pq_lookup(packed, codes),
+               lambda: pk.lookup_packed_plain(packed, codes))
+    _bound(kern, "pq_lookup", packed.numel() * 4 + codes.numel() + q_b * c * 4,
+           q_b * c * m)
+    r, beam = SCALE_R, BEAM_EXTRA["inmemory"][0]
+    tables, rows, parents, ids = _fused_inputs(gen, Q, n, r, m, beam, n, dev)
+    packed = pk.pack_tables(tables)
+    del tables
+    got_ids, got_d = pk.frontier_lookup(packed, rows, parents)
+    want_ids, want_d = pk.frontier_lookup_plain(packed, rows, parents)
+    if not torch.equal(got_ids, want_ids):
+        raise AssertionError("frontier_lookup at the scale bundle's widths: ids differ")
+    kern["frontier_lookup"]["max_abs_err"] = cm.dist_err("frontier_lookup", got_d, want_d)
+    _time_pair(kern, "frontier_lookup", f"Q={Q} N={n} R={r} m={m} beam {beam}",
+               lambda: pk.frontier_lookup(packed, rows, parents),
+               lambda: pk.frontier_lookup_plain(packed, rows, parents))
+    _bound(kern, "frontier_lookup", packed.numel() * 4 + _unique_rows(parents)
+           * rows.shape[1] + parents.numel() * 4 + Q * beam * r * 8, Q * beam * r * m)
+    result["kernels"] = kern
+    with open(os.path.join(out_dir, f"scale_{n}.json"), "w") as f:
+        json.dump(result, f, indent=1, default=str)
+    log(f"scale run N={n}: {json.dumps(kern)}")
 
 
 def counted(label, launched, fn, totals):
@@ -1933,21 +2174,38 @@ def search_phases(dev, totals, kern):
         best_s = phase_sharded(prefix, dev, totals, kern, base_rows)
     phase_streaming(dev, totals)
     best_big = phase_bigbuild(dev, totals)
+    best_scale = phase_scale(dev, totals)
     log(f"ok: inmemory best L={best['L']} recall@10 {best['recall']:.2f}, "
         f"scattered ids and iterations identical; exactdistance best "
         f"L={best_e['L']} recall@10 {best_e['recall']:.2f}, scattered ids identical; "
         f"base best L={best_b['L']} recall@10 {best_b['recall']:.2f}, pipelined ids "
         f"identical to serial; bloom, warm-up, serving and streaming checked; sharded "
         f"best L={best_s['L']} recall@10 {best_s['recall']:.2f}; sharded build best "
-        f"L={best_big['L']} recall@10 {best_big['recall']:.2f}")
+        f"L={best_big['L']} recall@10 {best_big['recall']:.2f}; scale base (mmap ids "
+        f"identical to RAM) best L={best_scale['L']} recall@10 "
+        f"{best_scale['recall']:.2f}")
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one CUDA card "
+                                 "(phases 1-16; see the module docstring).")
+    ap.add_argument("--scale", type=int, default=None, metavar="N",
+                    help="instead: build_100m at N points and the scale run "
+                         "(scale_run), results in <out>/scale_<N>*.json")
+    ap.add_argument("--out", default=os.path.join("bench_data", "scale"),
+                    help="the scale run's output directory")
+    args = ap.parse_args(argv)
     smi = phase_device()
     dev = torch.device("cuda")
     import bang_tpu_torch  # noqa: F401  (TF32 off)
 
     phase_build()
+    if args.scale:
+        scale_run(dev, args.scale, args.out)
+        log(f"on {smi}")
+        return
     kern = phase_kernels(dev)
     phase_mask(dev)
     t0 = time.perf_counter()

@@ -40,6 +40,16 @@ from bang_tpu_torch.utils.config import SearchParams
 CPU8 = [torch.device("cpu")] * 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small eager ops on one intra-op thread: under a parallel
+    test run a thread pool per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def dataset():
     data = jsyn.make_clustered_data(2048, 32, n_clusters=24, seed=11)
@@ -160,6 +170,152 @@ def test_search_data_parallel_matches_jax(dataset):
     with pytest.raises(ValueError, match="split evenly"):
         sharded.search_data_parallel(sharded.make_mesh(8, 1, CPU8), index,
                                      queries[:44], params)
+
+
+@pytest.mark.parametrize("fn", ["search_sharded", "search_data_parallel"])
+def test_sharded_searches_refuse_sampled_entry(dataset, fn):
+    """JAX's sharded searches enter at the medoid whatever entry_mode says;
+    the port refuses sampled entry rather than answer otherwise."""
+    data, queries, _, _ = dataset
+    params = SearchParams(L=48, k=10, entry_mode="sampled")
+    if fn == "search_sharded":
+        index = partition.build_sharded_index(data, 4, r=24, m=16, seed=7, device="cpu")
+        mesh = sharded.make_mesh(2, 4, CPU8)
+    else:
+        adj, degrees = jsyn.build_knn_graph(data, 24, n_random=4, seed=3)
+        pq = jsyn.train_pq(data, 16, seed=3)
+        pq.codes = jsyn.encode_pq(data, pq)
+        index = index_from_jax(jax_device_index(
+            graph=JaxGraph(data, adj, degrees, jsyn.medoid_of(data)), pq=pq), "cpu",
+            fused_frontier=False)
+        mesh = sharded.make_mesh(8, 1, CPU8)
+    with pytest.raises(ValueError, match="entry_mode='sampled'"):
+        getattr(sharded, fn)(mesh, index, queries, params)
+
+
+class _HostReads:
+    """Counts host reads of tensors (bool(), .item(), .tolist()) while on."""
+
+    def __init__(self, monkeypatch):
+        self.on, self.n = False, 0
+        for name in ("__bool__", "item", "tolist"):
+            orig = getattr(torch.Tensor, name)
+            monkeypatch.setattr(torch.Tensor, name, self._counted(orig))
+
+    def _counted(self, orig):
+        def read(t, *args):
+            self.n += self.on
+            return orig(t, *args)
+        return read
+
+    def during(self, fn, reads):
+        """fn, wrapped: its host reads appended to `reads`."""
+        def wrapped(*args, **kwargs):
+            self.on, n0 = True, self.n
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.on = False
+                reads.append(self.n - n0)
+        return wrapped
+
+
+def _expected_reads(iters, max_iters):
+    """traverse: one read before each step and one that ends the walk,
+    unless max_iters ends it."""
+    return iters - (iters == max_iters)
+
+
+# name -> (r, m, fused, visited mode, L, extra_iters)
+TOGETHER = {
+    "pq": (24, 16, False, "exact", 48, 50),
+    "fused": (32, 16, True, "exact", 48, 50),
+    "exact": (24, None, False, "exact", 48, 50),
+    "pq_bloom": (24, 16, False, "bloom", 48, 50),
+    "capped": (24, 16, True, "exact", 48, 2),  # every walk ends at max_iters
+}
+
+
+@pytest.mark.parametrize("name", list(TOGETHER))
+def test_search_sharded_steps_shards_together(dataset, name, monkeypatch):
+    """The shards step in rounds with one host read per round, and give the
+    per-shard loop's ids, distances and iterations bit for bit."""
+    data, queries, _, _ = dataset
+    r, m, fused, mode, L, extra = TOGETHER[name]
+    si = partition.build_sharded_index(data, 4, r=r, m=m, seed=7, fused_frontier=fused,
+                                       device="cpu")
+    mesh = sharded.make_mesh(2, 4, CPU8)
+    params = SearchParams(L=L, k=10, visited_mode=mode, extra_iters=extra)
+    reads = _HostReads(monkeypatch)
+
+    want_ids, want_d, alone_iters, alone_reads = [], [], [], []
+    orig_traverse = sharded.traverse
+
+    def traverse(step, state, max_iters):
+        final = orig_traverse(step, state, max_iters)
+        alone_iters.append(final.it)
+        return final
+
+    monkeypatch.setattr(sharded, "traverse", reads.during(traverse, alone_reads))
+    for qs in torch.as_tensor(queries).chunk(2):
+        parts = [sharded._local_search(
+            sh.adj, sh.vectors, sh.codes, sh.fused_rows, sh.codebook, sh.medoid,
+            sh.id_base, qs, l=L, k=10, max_iters=params.max_iters,
+            use_bloom=mode == "bloom") for sh in (si.shard(s, "cpu") for s in range(4))]
+        i, d = sharded.merge_topk(torch.stack([p[0] for p in parts]),
+                                  torch.stack([p[1] for p in parts]), 10)
+        want_ids.append(i)
+        want_d.append(d)
+
+    together_iters, together_reads = [], []
+    orig_together = sharded.traverse_together
+
+    def together(walks, max_iters, home):
+        finals = orig_together(walks, max_iters, home)
+        together_iters.extend(f.it for f in finals)
+        return finals
+
+    monkeypatch.setattr(sharded, "traverse_together",
+                        reads.during(together, together_reads))
+    ids, dists = sharded.search_sharded(mesh, si, queries, params)
+    assert torch.equal(ids, torch.cat(want_ids)) and torch.equal(dists, torch.cat(want_d))
+    assert together_iters == alone_iters and len(alone_iters) == 8
+    if name == "capped":
+        assert set(alone_iters) == {params.max_iters}
+    else:
+        assert len(set(alone_iters)) > 1, alone_iters  # some walks end early
+    mi = params.max_iters
+    assert alone_reads == [_expected_reads(it, mi) for it in alone_iters]
+    # one read of the stacked flags per round (the first before any step)
+    assert together_reads == [_expected_reads(max(alone_iters), mi)]
+
+
+def test_search_data_parallel_steps_rows_together(dataset, monkeypatch):
+    """The data rows step in rounds, one host read a round, and equal
+    search_inmemory on each row's queries, iterations included."""
+    data, queries, _, _ = dataset
+    adj, degrees = jsyn.build_knn_graph(data, 24, n_random=4, seed=3)
+    pq = jsyn.train_pq(data, 16, seed=3)
+    pq.codes = jsyn.encode_pq(data, pq)
+    index = index_from_jax(jax_device_index(
+        graph=JaxGraph(data, adj, degrees, jsyn.medoid_of(data)), pq=pq), "cpu")
+    params = SearchParams(L=48, k=10, beam_width=2)
+    rows = [search_inmemory(index, qs, params) for qs in torch.as_tensor(queries).chunk(4)]
+    reads, counted, iters = _HostReads(monkeypatch), [], []
+    orig = sharded.traverse_together
+
+    def together(walks, max_iters, home):
+        finals = orig(walks, max_iters, home)
+        iters.extend(f.it for f in finals)
+        return finals
+
+    monkeypatch.setattr(sharded, "traverse_together", reads.during(together, counted))
+    ids, dists = sharded.search_data_parallel(sharded.make_mesh(4, 1, CPU8), index,
+                                              queries, params)
+    assert torch.equal(ids, torch.cat([r[0] for r in rows]))
+    assert torch.equal(dists, torch.cat([r[1] for r in rows]))
+    assert iters == [r[2].iters for r in rows]
+    assert counted == [_expected_reads(max(iters), params.max_iters)]
 
 
 def test_pq_lookup_tp_matches_jax():

@@ -83,12 +83,23 @@ adj, deg, assignment = bigbuild.build_sharded_vamana(gen, r=8, l_build=16, n_sha
 assert adj.shape == (3000, 8) and assignment.shape == (3000, 2)
 from bang_tpu_torch.formats import preprocess
 assert preprocess.preprocess_data_mips(np.ones((3, 2), np.float32)).shape == (3, 3)
+# the large-bundle builder's five stages at a tiny N, then run_eval's base branch
+from bang_tpu_torch.scripts import build_100m, run_eval
+with tempfile.TemporaryDirectory() as tmp:
+    prefix, ran = build_100m.main(n=3000, r=8, m=8, n_shards=2, l_build=16, batch=512,
+                                  cache=tmp, block=1024, pq_sample=1024, n_queries=16,
+                                  device="cpu")
+    assert list(ran) == list(build_100m.STAGES), ran
+    row = run_eval.main(["--prefix", prefix, "--grid", "16", "--nq", "16", "--mmap",
+                         "--n-pipeline", "2", "--device", "cpu", "--out", tmp + "/e.json"])
+    assert row["n_points"] == 3000 and row["points"][0]["L"] == 16, row
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not any(m.split(".")[0] in ("jax", "bang_tpu") for m in loaded), loaded
 for new in ("ops.bloom", "utils.graph_tools", "harness.serving", "models.streaming",
             "utils.validate", "formats.texmex", "scripts.exp_dma_tiled",
             "parallel.sharded", "parallel.partition", "parallel.pq_tp",
-            "parallel.base_tp", "formats.bigbuild", "formats.preprocess", "entry"):
+            "parallel.base_tp", "formats.bigbuild", "formats.preprocess", "entry",
+            "scripts.bundles", "scripts.build_100m", "scripts.run_eval"):
     assert "bang_tpu_torch." + new in loaded, new
 print("no-jax search ok")
 """
