@@ -102,6 +102,22 @@ class DeviceIndex:
         return DeviceIndex(**moved)
 
 
+def free_device_index(index: DeviceIndex) -> None:
+    """Release an index's device memory now (bang_tpu/models/index.py:252):
+    every tensor field, the codebook included, is set to None, and on a
+    CUDA index the caching allocator's free blocks go back to the card, so
+    a bench that loads several multi-GB indices one after another starts
+    each on a clean pool. Other references to the tensors keep them alive,
+    as in PyTorch anywhere. `BANGSearch.bang_unload` only drops its
+    references (ROADMAP, Known differences)."""
+    cuda = index.vectors is not None and index.vectors.device.type == "cuda"
+    for f in dataclasses.fields(index):
+        if isinstance(getattr(index, f.name), (torch.Tensor, PQCodebook)):
+            setattr(index, f.name, None)
+    if cuda:
+        torch.cuda.empty_cache()
+
+
 def fused_layout_fits(n: int, r: int, m: int) -> bool:
     """Whether the fused PQ rows of an (N, R, m) index fit FUSED_LAYOUT_BUDGET."""
     return n * r * (4 + m) <= FUSED_LAYOUT_BUDGET

@@ -7,8 +7,9 @@ timers on; per L a warm-up call on 256 queries, then one timed call on all
 of them: tie-expanded recall@10, wall QPS, device steps, readback waits,
 the stage ms (host_gather, d2h_parents, dispatch, wall). The row is the
 first L that reaches 90 recall@10 (else the last); every L of the grid is
-measured and listed under "points" (bench.py stops at the first L past the
-target). At that L, up to 20M points: the same call with one sub-batch
+measured and listed under "points" (the port's bench, bang_tpu_torch/
+bench.py, stops at the first L past the target, as bench.py does:
+`until_target`). At that L, up to 20M points: the same call with one sub-batch
 (the pipeline's A/B); on the card, ms of one device step
 (harness/serving.measure_base_device_step_ms). The JAX runner's
 `projected_pcie_qps` and `host_gather_pure_ms` projected a host past its
@@ -18,11 +19,15 @@ are not computed.
 inmemory / exactdistance: BANGSearch over the grid at bench.py's beam and
 extra_iters for the variant (VARIANT_CONFIGS): per L a warm-up
 (bang_alloc) and three timed calls; the row is the first L that reaches 90
-recall@10, measured again with five calls. The JAX runner's pipelined QPS
-(6 batches in flight) has no counterpart: bang_query returns host arrays,
-so a call ends when its batch is done. --refine (the recall-0.9 frontier,
-bench.py::_refine_knee) waits for the port's bench and raises, as does
---neighbor-codes (a TPU layout the port leaves out).
+recall@10, measured again with five calls. With --refine the row is
+instead the recall-0.9 frontier around that L (the port's
+bench._refine_knee, bench.py:308: bisect L, fewer extra_iters, beams 1, 2
+and 4, sampled entry), measured again with five calls at the point it
+picks; "refined" holds the point as the refinement measured it. The JAX
+runner's pipelined QPS (6 batches in flight) has no counterpart:
+bang_query returns host arrays, so a call ends when its batch is done.
+--refine on base and --neighbor-codes (a TPU layout the port leaves out)
+raise.
 
 The artifact also records the device (name, power limit, count), torch and
 CUDA versions. Times on the CPU (--device cpu) are the host's.
@@ -77,9 +82,10 @@ def _first_passing(points: list) -> dict:
 
 def sweep_base(prefix, queries, gt_ids, gt_dists, grid=(30, 45, 60, 90), beam=2,
                extra=16, n_pipeline=8, mmap=True, entry_mode="medoid",
-               device="cuda") -> dict:
+               device="cuda", until_target=False) -> dict:
     """The base row (bench.py::sweep_base's protocol, see the module
-    docstring)."""
+    docstring). until_target: stop the grid at the first L that reaches
+    TARGET_RECALL (bench.py's rule) instead of measuring every L."""
     import torch
 
     from bang_tpu_torch.device import resolve_device
@@ -124,6 +130,8 @@ def sweep_base(prefix, queries, gt_ids, gt_dists, grid=(30, 45, 60, 90), beam=2,
         log(f"{os.path.basename(prefix)} base L={L} recall={recall:.2f} "
             f"qps_wall={point['qps_wall']:.1f} steps={steps} stages={stages}")
         points.append(point)
+        if until_target and recall >= TARGET_RECALL:
+            break
     row = dict(_first_passing(points))
     row.update(points=points, mmap=mmap, n_pipeline=n_pipeline, load_s=load_s)
     params = params_at(row["L"])
@@ -149,8 +157,10 @@ def sweep_base(prefix, queries, gt_ids, gt_dists, grid=(30, 45, 60, 90), beam=2,
     return row
 
 
-def sweep_variant(prefix, variant, queries, gt_ids, gt_dists, grid, device="cuda") -> dict:
-    """The HBM variants' row through BANGSearch (see the module docstring)."""
+def sweep_variant(prefix, variant, queries, gt_ids, gt_dists, grid, device="cuda",
+                  refine=False) -> dict:
+    """The HBM variants' row through BANGSearch (see the module docstring);
+    refine: the recall-0.9 frontier around the first passing L."""
     from bang_tpu_torch.api import BANGSearch
     from bang_tpu_torch.utils.recall import calculate_recall
 
@@ -164,25 +174,43 @@ def sweep_variant(prefix, variant, queries, gt_ids, gt_dists, grid, device="cuda
     layout = ("fused" if ix.fused_rows is not None or ix.fused_vec_rows is not None
               else "scattered")
 
-    def measure(L, reps):
-        s.bang_set_searchparams(K, L, beam_width=cfg["beam"], extra_iters=cfg["extra"])
+    def measure(L, reps, beam=cfg["beam"], extra=cfg["extra"], entry="medoid"):
+        s.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra,
+                                entry_mode=entry)
         s.bang_alloc(nq)  # warm-up at this batch shape
         times = []
         for _ in range(reps):
             t1 = time.perf_counter()
             ids, _dists = s.bang_query(queries)
             times.append(time.perf_counter() - t1)
-        point = {"variant": variant, "layout": layout, "L": L, "beam": cfg["beam"],
-                 "extra": cfg["extra"], "qps": nq / min(times),
+        point = {"variant": variant, "layout": layout, "L": L, "beam": beam,
+                 "extra": extra, "entry": entry, "qps": nq / min(times),
                  "qps_median": nq / float(np.median(times)), "rep_s": times,
                  "iters": s.last_stats.iters,
                  "recall": calculate_recall(gt_ids, ids, K, gt_dists)}
-        log(f"{os.path.basename(prefix)} {variant} L={L} recall={point['recall']:.2f} "
-            f"qps={point['qps']:.1f} iters={point['iters']} rep_s={times}")
+        log(f"{os.path.basename(prefix)} {variant} L={L} beam={beam} extra={extra} "
+            f"entry={entry} recall={point['recall']:.2f} qps={point['qps']:.1f} "
+            f"iters={point['iters']} rep_s={times}")
         return point
 
     points = [measure(L, 3) for L in grid]
-    row = measure(_first_passing(points)["L"], 5)
+    first = _first_passing(points)
+    if refine and first["recall"] >= TARGET_RECALL:
+        import torch
+
+        from bang_tpu_torch import bench
+        from bang_tpu_torch.models.exactdistance import search_exact
+        from bang_tpu_torch.models.inmemory import search_inmemory
+
+        i = points.index(first)
+        search = search_inmemory if variant == "inmemory" else search_exact
+        qd = torch.as_tensor(queries, device=ix.vectors.device).float()
+        best = bench._refine_knee(ix, search, qd, gt_ids, gt_dists,
+                                  points[i - 1]["L"] if i else K, dict(first))
+        row = measure(best["L"], 5, best["beam"], best["extra"], best["entry"])
+        row.update(frontier=True, refined=best)
+    else:
+        row = measure(first["L"], 5)
     row.update(points=points, load_s=load_s)
     s.bang_unload()
     return row
@@ -211,17 +239,17 @@ def main(argv=None) -> dict:
                     help="after the sweep, run the chosen L again with "
                          "entry_mode=sampled and attach the result")
     ap.add_argument("--refine", action="store_true",
-                    help="the recall-0.9 frontier (not ported yet: raises)")
+                    help="the recall-0.9 frontier around the first passing L "
+                         "(inmemory/exactdistance; the bench's _refine_knee)")
     ap.add_argument("--neighbor-codes", action="store_true",
                     help="the TPU's nbr_codes layout (not ported: raises)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--note", default=None, help="free-form provenance note")
     ap.add_argument("--out", required=True, help="output JSON artifact path")
     args = ap.parse_args(argv)
-    if args.refine:
-        raise NotImplementedError("--refine: the frontier refinement "
-                                  "(bench.py::_refine_knee) waits for the port's "
-                                  "bench (ROADMAP Queue 1 item 11)")
+    if args.refine and args.variant == "base":
+        raise ValueError("--refine refines the HBM variants' sweep "
+                         "(inmemory, exactdistance), not base's")
     if args.neighbor_codes:
         raise ValueError("--neighbor-codes asks for the JAX package's nbr_codes "
                          "layout, a TPU layout the port leaves out")
@@ -248,7 +276,7 @@ def main(argv=None) -> dict:
                 "steps_per_round_trip")}
     else:
         row = sweep_variant(prefix, args.variant, queries, gt_ids, gt_dists,
-                            tuple(args.grid), device=dev)
+                            tuple(args.grid), device=dev, refine=args.refine)
     meta_path = prefix + "_disk_metadata.bin"
     if os.path.exists(meta_path):
         m = load_metadata(meta_path)

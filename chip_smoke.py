@@ -109,7 +109,8 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 (in-memory, exact) and measure_base_device_step_ms at 1,250
                 (exact, bloom, bloom, exact), each launching its variant's
                 kernel.
- 13. streaming — bench.py::streaming_row's point: StreamingIndex from empty
+ 13. streaming — bang_tpu_torch/bench.streaming_row (bench.py::streaming_row's
+                point): StreamingIndex from empty
                 over 200K x 128 f32 clustered points (seed 11, 200 clusters),
                 R=32, l_build 32, inserts of 4,096; search at L=64, beam 2,
                 extra_iters 24 over 2,048 queries; 10% churn (delete,
@@ -156,6 +157,22 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 and read into RAM at L in {30, 60, 90}: ids and steps
                 identical, K1 once a device step, recall@10 >= 90 at the best
                 L. Then run_eval.py's base branch once (--mmap).
+ 17. bench    — the port's bench (bang_tpu_torch/bench.py) through its own
+                functions, on phase 4's bundle: sweep_variant for
+                exactdistance (K3) and inmemory (K2) over VARIANT_CONFIGS'
+                grids, refined by _refine_knee (bisected L, fewer
+                extra_iters, beams 1/2/4, sampled entry), measured again
+                (5 calls, 6 in flight) with the serving rows: the refined
+                point's recall@10 >= 90. The breadth rows at their bench
+                sizes, their bundles built under bench_data/ by three
+                spawned processes started with phase 4 (their numpy PQ
+                training takes minutes) and joined here: gist960 (100K x
+                960 f32, m=120, K2), glove200_mips (100K x 201 f32, exact,
+                scattered, no kernel), spacev_int8 (100K x 100 int8, m=50,
+                K2), each refined, recall@10 >= 90. K2 against its plain
+                version, timed, with bounds, at the two breadth shapes (Q=2048,
+                100K rows, R=32, m=120 and m=50, beam 2). merge_bench_json on
+                the phase's rows. Any failed row fails the phase.
 --scale N     — not a phase: build_100m at N in 4 shards (the rest of its
                 recipe as it is), each shard's peak beside the model; base
                 through run_eval.py memory-mapped and in RAM at L in {30, 60,
@@ -242,6 +259,11 @@ K1_WIDTHS = (
     ("phase 16's base sub-batch, R=32 m=32", Q // BASE_PIPELINE, BASE_BEAM * SCALE_R,
      SCALE_M),
 )
+# phase 17: the longest wait for a breadth bundle's build (started with
+# phase 4; gist960's took 220.5 s alone on one H100, PERF.md)
+BREADTH_BUILD_WAIT_S = 600
+# the thread-count variables set to 1 in those builds' processes
+BUILD_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 # phase 15: the sharded build's dataset, the PQ training sample, the Ls
 BIG_N = 1_000_000
 PQ_SAMPLE = 16_384
@@ -597,6 +619,31 @@ def _k2_out_of_range(gen, dev):
     log("kernels K2 parents outside [0, N): id -1 and +inf, the rest as plain")
 
 
+def _k2_at(gen, label, q, n, r, m, beam, dev):
+    """K2 against frontier_lookup_plain on random fused rows at one shape
+    (ids below n): ids identical, distances within dist_err's tolerance;
+    timed (plain, kernel, kernel, plain) beside its bound. Returns the
+    shape's record."""
+    from bang_tpu_torch.ops import pq_kernels as pk
+    from bang_tpu_torch.scripts._common import dist_err
+
+    tables, rows, parents, _ids = _fused_inputs(gen, q, n, r, m, beam, n, dev)
+    packed = pk.pack_tables(tables)
+    del tables
+    got_ids, got_d = pk.frontier_lookup(packed, rows, parents)
+    want_ids, want_d = pk.frontier_lookup_plain(packed, rows, parents)
+    if not torch.equal(got_ids, want_ids):
+        raise AssertionError(f"frontier_lookup at {label}: ids differ")
+    rec = {"frontier_lookup": {"shape": label, "max_abs_err": dist_err(
+        f"frontier_lookup at {label}", got_d, want_d)}}
+    _time_pair(rec, "frontier_lookup", label,
+               lambda: pk.frontier_lookup(packed, rows, parents),
+               lambda: pk.frontier_lookup_plain(packed, rows, parents))
+    _bound(rec, "frontier_lookup", packed.numel() * 4 + _unique_rows(parents)
+           * rows.shape[1] + parents.numel() * 4 + q * beam * r * 8, q * beam * r * m)
+    return rec["frontier_lookup"]
+
+
 def phase_kernels(dev):
     from bang_tpu_torch.ops import pq_kernels as pk
     from bang_tpu_torch.scripts._common import dist_err
@@ -826,43 +873,6 @@ def run_search(prefix, dev, variant, l_values, fused_frontier=None,
     return rows
 
 
-# the traversal's steps whose device time profile_search reads by name:
-# models/traversal's module globals, each run inside a profiler range. The
-# profiler ties no kernel launched through ctypes (K2, K3) to a range: their
-# times are in the per-kernel rows.
-PROFILE_STAGES = ("exact_new_mask", "first_occurrence_mask_blocks", "merge_worklist",
-                  "select_parents_beam", "bloom_positions", "bloom_query", "bloom_insert")
-BLOOM_STAGES = PROFILE_STAGES[-3:]
-
-
-@contextlib.contextmanager
-def _traversal_stages(mask, traversal=None):
-    """Run the traversal (models/traversal, or the module given, which calls
-    the same step functions by the same names: models/base) with `mask` as
-    its visited mask and each of PROFILE_STAGES inside a torch.profiler
-    range of its name (the kernels a range launches count towards its device
-    time); restore them after."""
-    if traversal is None:
-        from bang_tpu_torch.models import traversal
-
-    saved = {name: getattr(traversal, name) for name in PROFILE_STAGES}
-    fns = {**saved, "exact_new_mask": mask}
-
-    def ranged(name, fn):
-        def run(*args):
-            with torch.profiler.record_function(name):
-                return fn(*args)
-        return run
-
-    try:
-        for name, fn in fns.items():
-            setattr(traversal, name, ranged(name, fn))
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(traversal, name, fn)
-
-
 def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
                    visited_mode="exact"):
     """BANGSearch(variant) at L on the layout `fused_frontier` picks (the
@@ -870,15 +880,16 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
     again with its dense form (the JAX expression), or with the bloom
     filter: each three timed calls, then one under torch.profiler. Prints
     the device ms of each kernel name and of each traversal stage
-    (PROFILE_STAGES) summed over the call, the kernels' total against the
-    profiled call's wall (the device's busy share) and the peak memory of
-    that call; in bloom mode also the filter's ms a step (hash, query and
-    insert)."""
+    (exp_iter_profile.PROFILE_STAGES) summed over the call, the kernels'
+    total against the profiled call's wall (the device's busy share) and
+    the peak memory of that call; in bloom mode also the filter's ms a step
+    (hash, query and insert)."""
     from torch.profiler import ProfilerActivity, profile
 
     from bang_tpu_torch.api import BANGSearch
     from bang_tpu_torch.formats.bin_io import load_bin
     from bang_tpu_torch.ops import visited
+    from bang_tpu_torch.scripts import exp_iter_profile as eip
 
     queries = load_bin(prefix + "_query.bin", np.uint8)
     beam, extra = BEAM_EXTRA[variant]
@@ -898,7 +909,7 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
             masks.append(("dense mask", visited.exact_new_mask_dense))
     for mask_name, mask in masks:
         label = f"profile {variant} {layout} L={L} {mask_name}"
-        with _traversal_stages(mask):
+        with eip.traversal_stages(mask):
             walls = []
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -914,11 +925,11 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
         peak = torch.cuda.max_memory_allocated()
         log(f"{label}: {s.last_stats.iters} iterations; walls of 3 timed calls "
             + " / ".join(f"{w:.4f}" for w in walls) + f" s; profiled call {wall:.4f} s")
-        total, stages, _ = _read_profile(prof, label, PROFILE_STAGES)
+        total, stages, _ = eip.read_profile(prof, label, eip.PROFILE_STAGES)
         log(f"{label}: kernels {total:.3f} ms in a {wall * 1e3:.3f} ms wall, busy "
             f"{total / (wall * 1e3):.1%}; peak {peak / 1e9:.2f} GB")
         if visited_mode == "bloom":
-            ms = sum(stages.get(name, (0.0, 0))[0] for name in BLOOM_STAGES)
+            ms = sum(stages.get(name, (0.0, 0))[0] for name in eip.BLOOM_STAGES)
             steps = stages.get("bloom_query", (0.0, 0))[1]
             if not steps:
                 raise AssertionError(f"{label}: the bloom filter was never queried")
@@ -926,51 +937,6 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
                 f"steps, {ms / steps:.4f} ms a step")
     s.bang_unload()
     torch.cuda.empty_cache()
-
-
-def _read_profile(prof, label, stage_names):
-    """Print the device ms of each kernel name (the top 16) and of each
-    profiler range in `stage_names` (the kernels it launched) over a
-    profiled call; returns (kernel ms in all, {range: [ms, calls]}, the
-    (ms, calls, name) rows of every kernel, largest first)."""
-    # the stage ranges also appear on the device's timeline under their
-    # own names: they are spans, not kernels
-    kernels = sorted(
-        ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0 and e.key not in stage_names),
-        reverse=True)
-    for ms, count, key in kernels[:16]:
-        log(f"profile {ms:10.3f} ms {count:6d} calls  {key[:100]}")
-    stages = {}  # name -> [device ms of the kernels each range launched, calls]
-    for e in prof.events():
-        if e.name in stage_names and e.device_type == torch.autograd.DeviceType.CPU:
-            acc = stages.setdefault(e.name, [0.0, 0])
-            acc[0] += e.device_time_total / 1e3
-            acc[1] += 1
-    log(f"{label} stages (kernel ms): " + ", ".join(
-        f"{k} {ms:.3f} ms ({n} calls)" for k, (ms, n) in stages.items()))
-    return sum(k[0] for k in kernels), stages, kernels
-
-
-def _busy_ms(prof, stage_names):
-    """Device ms during which at least one kernel ran, on any stream: the
-    union of the kernels' intervals (several streams overlap, so their sum
-    can pass the wall)."""
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.name not in stage_names and e.time_range.end > e.time_range.start)
-    if not spans:
-        raise AssertionError("the profiler recorded no kernel on the card")
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy += hi - lo
-            lo, hi = a, b
-        else:
-            hi = max(hi, b)
-    return (busy + hi - lo) / 1e3
 
 
 def run_base(prefix, dev, l_values, n_pipeline_batches=BASE_PIPELINE,
@@ -1078,88 +1044,11 @@ def host_gather_alone(prefix, dev):
     return out
 
 
-def profile_base(prefix, dev, L, extra=BASE_EXTRA):
-    """BANGSearch("base") at L as in phase 10 (or at `extra` extra_iters):
-    three timed calls, then one
-    under torch.profiler with each step stage (PROFILE_STAGES, models/base)
-    and the code gather of the PQ lookup in profiler ranges. Prints kernel
-    ms by name and by range, the stage timers of the profiled call, the
-    card's busy share (the union of kernel intervals over the wall) and the
-    call's peak memory."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from bang_tpu_torch.api import BANGSearch
-    from bang_tpu_torch.constants import ENABLE_GPU_STATS
-    from bang_tpu_torch.formats.bin_io import load_bin
-    from bang_tpu_torch.models import base
-    from bang_tpu_torch.ops import visited
-
-    queries = load_bin(prefix + "_query.bin", np.uint8)
-    s = BANGSearch("base", device=dev)
-    s.bang_load(prefix, mmap=False, n_pipeline_batches=BASE_PIPELINE)
-    searcher = s._searcher
-
-    class RangedCodes:
-        """The codes, their row gather (`codes[cand]` in the distance
-        function) inside a profiler range of its own."""
-
-        def __getitem__(self, idx):
-            with record_function("code_gather"):
-                return searcher.codes[idx]
-
-    def ranged_tables(sub_queries):  # what _prepare_tables makes, over RangedCodes
-        return base.make_pq_distance_fn(sub_queries, searcher.codebook, RangedCodes())
-
-    s.bang_set_searchparams(K, L, beam_width=BASE_BEAM, extra_iters=extra,
-                            capabilities=ENABLE_GPU_STATS)
-    s.bang_alloc(len(queries))
-    label = f"profile base L={L}"
-    names = PROFILE_STAGES + ("code_gather",)
-    with _traversal_stages(visited.exact_new_mask, base):
-        searcher._prepare_tables = ranged_tables
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s.bang_query(queries)
-            walls.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            s.bang_query(queries)
-            wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    log(f"{label}: {searcher.last_n_steps} device steps, {searcher.last_n_d2h} "
-        f"readback waits; walls of 3 timed calls "
-        + " / ".join(f"{w:.4f}" for w in walls) + f" s; profiled call {wall:.4f} s; "
-        "stage ms " + ", ".join(f"{k} {v:.3f}" for k, v in searcher.timers.ms.items()))
-    total, stages, kernels = _read_profile(prof, label, names)
-    busy = _busy_ms(prof, names)
-    # K1 per launch at a sub-batch's shape against its bound there
-    q_b = len(queries) // BASE_PIPELINE
-    c, m = BASE_BEAM * searcher.meta.degree, searcher.codebook.num_chunks
-    k1_ms, k1_n = next((ms, n) for ms, n, key in kernels if "pq_lookup_kernel" in key)
-    bound = (q_b * m * 512 + q_b * c * m + q_b * c * 4) / HBM_BYTES_PER_S * 1e3
-    gather_ms, gather_n = stages["code_gather"]
-    log(f"{label}: K1 {k1_ms / k1_n:.4f} ms a launch at Q={q_b} C={c} m={m} (bound "
-        f"{bound:.4f} ms, {bound / (k1_ms / k1_n):.0%} of it); the code gather "
-        f"{gather_ms / gather_n:.4f} ms a step")
-    log(f"{label}: kernels {total:.3f} ms summed over the streams, busy "
-        f"{busy:.3f} ms of a {wall * 1e3:.3f} ms wall ({busy / (wall * 1e3):.1%}); "
-        f"peak {peak / 1e9:.2f} GB")
-    s.bang_unload()
-    torch.cuda.empty_cache()
-    return {"L": L, "walls_s": walls, "profiled_wall_s": wall,
-            "steps": searcher.last_n_steps, "stage_ms": dict(searcher.timers.ms),
-            "kernel_ms": total, "busy_ms": busy, "busy_share": busy / (wall * 1e3),
-            "k1_ms": k1_ms / k1_n, "k1_bound_ms": bound,
-            "code_gather_ms": gather_ms / gather_n, "peak_gb": peak / 1e9}
-
-
 def phase_base(prefix, dev, totals):
     """Phase 10 on the bundle at `prefix`; adds its launch counts (not the
     profiled call's) to `totals`."""
+    from bang_tpu_torch.scripts.profile_base_step import profile_base
+
     rows, steps = counted("search base", {"pq_lookup"},
                           lambda: run_base(prefix, dev, BASE_L_SWEEP), totals)
     _k1_per_step("search base", steps)
@@ -1189,7 +1078,7 @@ def phase_base(prefix, dev, totals):
     in_loop = best["stages"]["host_gather"] / best["steps"]
     log(f"host gather per step: {pure:.4f} ms alone, {in_loop:.4f} ms in the loop "
         f"(L={best['L']})")
-    profile_base(prefix, dev, best["L"])
+    profile_base(prefix, dev, best["L"], BASE_BEAM, BASE_EXTRA, BASE_PIPELINE, K)
     return best, rows
 
 
@@ -1386,92 +1275,32 @@ def phase_warmup_serving(prefix, dev, totals):
     torch.cuda.empty_cache()
 
 
-def _live_recall(ids, queries, pts, live_ids, dev, alias=None):
-    """recall@10 of `ids` against the exact top 10 of the live points (on
-    the card, blocks of 256 queries), slot ids mapped through `alias`
-    (re-inserted points land in recycled slots), as bench.py::streaming_row."""
-    sub = torch.as_tensor(pts[live_ids], device=dev)
-    sn = (sub * sub).sum(-1)
-    live = torch.as_tensor(live_ids, device=dev)
-    gt = []
-    for s in range(0, len(queries), 256):
-        blk = torch.as_tensor(queries[s : s + 256], device=dev)
-        d = (blk * blk).sum(-1, keepdim=True) + sn[None, :] - 2.0 * (blk @ sub.T)
-        gt.append(live[torch.topk(d, K, dim=1, largest=False).indices].cpu().numpy())
-    gt = np.concatenate(gt)
-    if alias:
-        ids = np.vectorize(lambda i: alias.get(int(i), int(i)))(ids)
-    hits = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(ids, gt))
-    return 100.0 * hits / gt.size
-
-
 def phase_streaming(dev, totals):
-    """Phase 13 (no kernel may launch): grow, search, churn, search."""
-    def run():
-        from bang_tpu_torch.formats.synthetic import make_clustered_data
-        from bang_tpu_torch.models.streaming import StreamingIndex
-        from bang_tpu_torch.utils.config import SearchParams
+    """Phase 13 (no kernel may launch): bench.streaming_row at its own point;
+    recall@10 over the live set >= RECALL_TARGET before and after the
+    churn, the re-inserted points in the freed slots, the live count."""
+    from bang_tpu_torch import bench
 
-        n, q = STREAM_N, STREAM_Q
-        rng = np.random.default_rng(11)
-        pts = make_clustered_data(n, D, n_clusters=max(64, n // 1000), dtype=np.float32,
-                                  seed=11)
-        queries = (pts[rng.integers(0, n, q)]
-                   + rng.normal(0, 0.05, (q, D)).astype(np.float32))
-        ix = StreamingIndex(capacity=n + STREAM_CHUNK, dim=D, r=STREAM_R, l_build=32,
-                            device=dev)
-        t0 = time.perf_counter()
-        ix.insert(pts[:STREAM_CHUNK])  # the doubling ramp, outside the timed part
-        torch.cuda.synchronize()
-        log(f"streaming: first {STREAM_CHUNK} inserts (the ramp) "
-            f"{time.perf_counter() - t0:.3f} s")
-        t0 = time.perf_counter()
-        for s in range(STREAM_CHUNK, n, STREAM_CHUNK):
-            ix.insert(pts[s : s + STREAM_CHUNK])
-        torch.cuda.synchronize()
-        t_ins = time.perf_counter() - t0
-        params = SearchParams(L=64, k=K, extra_iters=24, beam_width=2)
-        ix.search(queries[:256], params)  # warm
-        t0 = time.perf_counter()
-        ids, _ = ix.search(queries, params)
-        t_pre = time.perf_counter() - t0
-        pre = _live_recall(ids, queries, pts, np.arange(n), dev)
-        log(f"streaming: {n - STREAM_CHUNK} inserts in {t_ins:.3f} s "
-            f"({(n - STREAM_CHUNK) / t_ins:.1f} inserts/s); search {q} queries "
-            f"{t_pre:.4f} s (qps {q / t_pre:.1f}), recall@10 {pre:.2f}")
-
-        victims = rng.choice(n, n // 10, replace=False).astype(np.int32)
-        ix.delete(victims)
-        t0 = time.perf_counter()
-        repaired = ix.consolidate(batch=STREAM_CHUNK)
-        t_cons = time.perf_counter() - t0
-        back = victims[:STREAM_CHUNK]
-        t0 = time.perf_counter()
-        new_ids = ix.insert(pts[back])  # into the freed slots
-        torch.cuda.synchronize()
-        t_back = time.perf_counter() - t0
-        if set(new_ids.tolist()) - set(victims.tolist()):
-            raise AssertionError("streaming: re-inserted points outside the freed slots")
-        alias = {int(s): int(o) for s, o in zip(new_ids, back)}
-        t0 = time.perf_counter()
-        ids, _ = ix.search(queries, params)
-        t_post = time.perf_counter() - t0
-        live = np.ones(n, bool)
-        live[victims] = False
-        live[back] = True
-        post = _live_recall(ids, queries, pts, np.flatnonzero(live), dev, alias)
-        log(f"streaming: delete {len(victims)}, consolidate {t_cons:.3f} s "
-            f"({repaired} rows repaired), re-insert {len(back)} in {t_back:.3f} s; "
-            f"search {t_post:.4f} s (qps {q / t_post:.1f}), recall@10 {post:.2f}; "
-            f"n_live {ix.n_live}")
-        for what, r in (("before", pre), ("after", post)):
-            if r < RECALL_TARGET:
-                raise AssertionError(f"streaming: recall@10 {r:.2f} {what} the churn "
-                                     f"< {RECALL_TARGET}")
-        if ix.n_live != n - len(victims) + len(back):
-            raise AssertionError(f"streaming: n_live {ix.n_live}")
-
-    counted("streaming", set(), run, totals)
+    row = counted("streaming", set(), lambda: bench.streaming_row(
+        STREAM_N, D, STREAM_R, STREAM_Q, STREAM_CHUNK, dev), totals)
+    n = STREAM_N
+    log(f"streaming: first {STREAM_CHUNK} inserts (the ramp) {row['ramp_s']:.3f} s")
+    log(f"streaming: {n - STREAM_CHUNK} inserts in {row['insert_wall_s']:.3f} s "
+        f"({row['inserts_per_s']:.1f} inserts/s); search {STREAM_Q} queries qps "
+        f"{row['qps_pre_churn']:.1f}, recall@10 {row['recall_pre_churn']:.2f}")
+    log(f"streaming: delete {n // 10}, consolidate {row['consolidate_s']:.3f} s "
+        f"({row['consolidate_repaired']} rows repaired), re-insert {STREAM_CHUNK} in "
+        f"{row['reinsert_s']:.3f} s; search qps {row['qps_post_churn']:.1f}, recall@10 "
+        f"{row['recall_post_churn']:.2f}; n_live {row['n_live']}")
+    if not row["reinserted_into_freed_slots"]:
+        raise AssertionError("streaming: re-inserted points outside the freed slots")
+    for what in ("pre", "post"):
+        if row[f"recall_{what}_churn"] < RECALL_TARGET:
+            raise AssertionError(f"streaming: recall@10 {row[f'recall_{what}_churn']:.2f}"
+                                 f" {what} the churn < {RECALL_TARGET}")
+    if row["n_live"] != row["n_live_expected"]:
+        raise AssertionError(f"streaming: n_live {row['n_live']}, expected "
+                             f"{row['n_live_expected']}")
     torch.cuda.empty_cache()
 
 
@@ -1993,6 +1822,114 @@ def phase_scale(dev, totals):
     return best
 
 
+def start_breadth_builds(dev):
+    """Phase 17's three breadth bundles (bench.BREADTH), each built from here
+    on in a spawned process of its own (bench.breadth_bundle) beside phases
+    4-16: their PQ training is numpy on the host, as the JAX package's
+    (gist960's m=120 takes minutes), and would otherwise take most of phase
+    17. Started with phase 4, after the kernels' timings, on `dev`.
+    Returns the processes by key."""
+    import multiprocessing
+
+    from bang_tpu_torch import bench
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = {key: ctx.Process(target=bench.breadth_bundle, args=(key, str(dev)),
+                              name=f"build {key}") for key in bench.BREADTH}
+    # each on one host thread (BLAS, OpenMP, torch): beside them phases 4-16
+    # build and measure host-bound paths, which 3 processes of 8 threads
+    # each slowed (the 1M bundle 201.0 -> 316.6 s on one H100, PERF.md)
+    saved = {var: os.environ.get(var) for var in BUILD_THREAD_VARS}
+    os.environ.update(dict.fromkeys(BUILD_THREAD_VARS, "1"))
+    try:
+        for proc in procs.values():
+            proc.start()
+    finally:
+        for var, val in saved.items():
+            if val is None:
+                os.environ.pop(var)
+            else:
+                os.environ[var] = val
+    log(f"breadth bundles: building {list(procs)} in {len(procs)} processes")
+    return procs
+
+
+def stop_builds(procs):
+    """End any build process still running (after a failure elsewhere)."""
+    for proc in procs.values():
+        if proc.is_alive():
+            proc.terminate()
+        proc.join(10)
+
+
+def phase_bench(prefix, dev, totals, kern, builds):
+    """Phase 17: the port's bench (bang_tpu_torch/bench.py) through its own
+    functions, each call counted: sweep_variant for both HBM variants on
+    the 1M bundle at `prefix`, refined and with the serving rows, the
+    refined point >= RECALL_TARGET; the three breadth rows at their bench
+    sizes (bundles cached under bench_data/, built by the processes
+    `builds` that start_breadth_builds started), each >= RECALL_TARGET; K2
+    against its plain version at the two breadth shapes it runs (timed,
+    with bounds, into kern["frontier_lookup"]["other_shapes"]);
+    merge_bench_json.merge on the phase's rows. Any failed row raises."""
+    from bang_tpu_torch import bench
+    from bang_tpu_torch.scripts import merge_bench_json
+    from bang_tpu_torch.scripts.bundles import load_bundle
+
+    t0 = time.perf_counter()
+    for key, proc in builds.items():
+        proc.join(BREADTH_BUILD_WAIT_S)
+        if proc.exitcode != 0:
+            raise AssertionError(f"bench: building the {key} bundle: exit code "
+                                 f"{proc.exitcode} (alive {proc.is_alive()})")
+    log(f"bench: the breadth bundles' builds joined after {time.perf_counter() - t0:.1f}"
+        " s of waiting")
+    queries, gt_ids, gt_dists = load_bundle(prefix, Q)
+    rows = {}
+    runs = [(variant, launched, lambda variant=variant: bench.sweep_variant(
+                prefix, variant, queries, gt_ids, gt_dists, refine=True,
+                measure_serving=True, device=dev))
+            for variant, launched in (("exactdistance", {"exact_frontier"}),
+                                      ("inmemory", {"frontier_lookup"}))]
+    runs += [(key, launched, lambda key=key: bench.breadth_row(key, dev))
+             for key, launched in (("gist960", {"frontier_lookup"}),
+                                   ("glove200_mips", set()),
+                                   ("spacev_int8", {"frontier_lookup"}))]
+    for key, launched, run in runs:
+        t0 = time.perf_counter()
+        row = rows[key] = counted(f"bench {key}", launched, run, totals)
+        log(f"bench {key} ({time.perf_counter() - t0:.1f} s): " + json.dumps(row))
+        if "error" in row or row["recall"] < RECALL_TARGET or not row["frontier"]:
+            raise AssertionError(f"bench {key}: not a refined point past "
+                                 f"{RECALL_TARGET}: {row}")
+    if rows["inmemory"].get("device_ms_full_batch") is None:
+        raise AssertionError("bench inmemory: no serving rows on the card")
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    kern["frontier_lookup"]["other_shapes"] = shapes = []
+    for key in ("gist960", "spacev_int8"):
+        _name, n, _d, r, m, *_ = bench.BREADTH[key]
+        beam = rows[key]["beam"]
+        rec = _k2_at(gen, f"{key}: Q={bench.BREADTH_Q} N={n} R={r} m={m} beam {beam}",
+                     bench.BREADTH_Q, n, r, m, beam, dev)
+        _note_err(kern, "frontier_lookup", rec["max_abs_err"])
+        shapes.append(rec)
+        log(f"bench K2 at {rec['shape']}: {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+            f"ms ({rec['bound_ms'] / rec['ms']:.0%}), plain {rec['plain_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+
+    fresh = {"inmemory": rows["inmemory"], "gist960": {"error": "skipped"}}
+    earlier = {"gist960": rows["gist960"], "exactdistance": rows["exactdistance"],
+               "spacev_int8": {"error": "failed"}}
+    merged, carried = merge_bench_json.merge(fresh, earlier, "earlier.json")
+    if (carried != ["gist960", "exactdistance"] or "spacev_int8" in merged
+            or merged["inmemory"] != rows["inmemory"]
+            or merged["gist960"] != dict(rows["gist960"], carried_from="earlier.json")):
+        raise AssertionError(f"merge_bench_json: carried {carried}, keys {list(merged)}")
+    log(f"bench merge_bench_json: carried {carried}, errored earlier row not carried")
+    return rows
+
+
 def scale_run(dev, n, out_dir):
     """`--scale N` (not a phase of the default run): build_100m at N in 4
     shards, each shard's peak beside shard_build_hbm_bytes; base through
@@ -2006,6 +1943,7 @@ def scale_run(dev, n, out_dir):
     from bang_tpu_torch.scripts import build_100m, run_eval
     from bang_tpu_torch.scripts import _common as cm
     from bang_tpu_torch.scripts.bundles import load_bundle
+    from bang_tpu_torch.scripts.profile_base_step import profile_base
     from bang_tpu_torch.utils.config import SearchParams
 
     os.makedirs(out_dir, exist_ok=True)
@@ -2047,8 +1985,8 @@ def scale_run(dev, n, out_dir):
     log(f"scale base mmap L={params.L}: first call {walls[0]:.4f} s, second "
         f"{walls[1]:.4f} s")
     del searcher
-    result["profile_base"] = profile_base(prefix, dev, result["base_ram"]["L"],
-                                          extra=SCALE_RUN_EXTRA)
+    result["profile_base"] = profile_base(prefix, dev, result["base_ram"]["L"], BASE_BEAM,
+                                          SCALE_RUN_EXTRA, BASE_PIPELINE, K)
     torch.cuda.empty_cache()
     result["inmemory"] = evaluated("inmemory", ["--variant", "inmemory", "--grid",
                                                 *map(str, SCALE_RUN_IM_L)])
@@ -2067,20 +2005,8 @@ def scale_run(dev, n, out_dir):
                lambda: pk.lookup_packed_plain(packed, codes))
     _bound(kern, "pq_lookup", packed.numel() * 4 + codes.numel() + q_b * c * 4,
            q_b * c * m)
-    r, beam = SCALE_R, BEAM_EXTRA["inmemory"][0]
-    tables, rows, parents, ids = _fused_inputs(gen, Q, n, r, m, beam, n, dev)
-    packed = pk.pack_tables(tables)
-    del tables
-    got_ids, got_d = pk.frontier_lookup(packed, rows, parents)
-    want_ids, want_d = pk.frontier_lookup_plain(packed, rows, parents)
-    if not torch.equal(got_ids, want_ids):
-        raise AssertionError("frontier_lookup at the scale bundle's widths: ids differ")
-    kern["frontier_lookup"]["max_abs_err"] = cm.dist_err("frontier_lookup", got_d, want_d)
-    _time_pair(kern, "frontier_lookup", f"Q={Q} N={n} R={r} m={m} beam {beam}",
-               lambda: pk.frontier_lookup(packed, rows, parents),
-               lambda: pk.frontier_lookup_plain(packed, rows, parents))
-    _bound(kern, "frontier_lookup", packed.numel() * 4 + _unique_rows(parents)
-           * rows.shape[1] + parents.numel() * 4 + Q * beam * r * 8, Q * beam * r * m)
+    kern["frontier_lookup"] = _k2_at(gen, f"Q={Q} N={n} R={SCALE_R} m={m} beam 2", Q, n,
+                                     SCALE_R, m, BEAM_EXTRA["inmemory"][0], dev)
     result["kernels"] = kern
     with open(os.path.join(out_dir, f"scale_{n}.json"), "w") as f:
         json.dump(result, f, indent=1, default=str)
@@ -2112,10 +2038,12 @@ def _best(rows, what):
     return best
 
 
-def search_phases(dev, totals, kern):
-    """Phases 4-15 on `dev`; adds the launch counts of 5-15 to `totals` (not
+def search_phases(dev, totals, kern, builds):
+    """Phases 4-17 on `dev`; adds the launch counts of 5-17 to `totals` (not
     those of the profiled calls after phases 5, 6, 7, 10 and 11, nor those
-    of phase 14's K1 checks, whose errors go into `kern`)."""
+    of phase 14's K1 checks and phase 17's K2 checks, whose errors go into
+    `kern`). Phase 17 runs after 14, on the bundle, once the processes
+    `builds` have built its breadth bundles."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         prefix = os.path.join(tmp, "synth1m")
         build_bundle(prefix, dev)
@@ -2172,6 +2100,9 @@ def search_phases(dev, totals, kern):
         phase_bloom(prefix, dev, totals)
         phase_warmup_serving(prefix, dev, totals)
         best_s = phase_sharded(prefix, dev, totals, kern, base_rows)
+        t0 = time.perf_counter()
+        bench_rows = phase_bench(prefix, dev, totals, kern, builds)
+        log(f"phase 17 (bench) {time.perf_counter() - t0:.1f}s")
     phase_streaming(dev, totals)
     best_big = phase_bigbuild(dev, totals)
     best_scale = phase_scale(dev, totals)
@@ -2183,14 +2114,15 @@ def search_phases(dev, totals, kern):
         f"best L={best_s['L']} recall@10 {best_s['recall']:.2f}; sharded build best "
         f"L={best_big['L']} recall@10 {best_big['recall']:.2f}; scale base (mmap ids "
         f"identical to RAM) best L={best_scale['L']} recall@10 "
-        f"{best_scale['recall']:.2f}")
+        f"{best_scale['recall']:.2f}; bench rows " + ", ".join(
+            f"{k} L={r['L']} recall@10 {r['recall']:.2f}" for k, r in bench_rows.items()))
 
 
 def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card "
-                                 "(phases 1-16; see the module docstring).")
+                                 "(phases 1-17; see the module docstring).")
     ap.add_argument("--scale", type=int, default=None, metavar="N",
                     help="instead: build_100m at N points and the scale run "
                          "(scale_run), results in <out>/scale_<N>*.json")
@@ -2213,14 +2145,19 @@ def main(argv=None):
     totals = dict.fromkeys(KERNEL_SOURCES, 0)
     probe_scripts(totals)
     log(f"probes {time.perf_counter() - t0:.1f}s")
-    search_phases(dev, totals, kern)
+    builds = start_breadth_builds(dev)
+    try:
+        search_phases(dev, totals, kern, builds)
+    finally:
+        stop_builds(builds)
     log(f"on {smi}")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "also_replaces": also, "launches": totals[name],
          **{k: kern[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}}
+                                       "bound_by", "library_ms")},
+         **{k: v for k, v in kern[name].items() if k == "other_shapes"}}
         for name, (src, rep, also) in KERNEL_SOURCES.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

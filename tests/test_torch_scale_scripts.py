@@ -317,7 +317,7 @@ def test_run_eval_on_the_cpu(built_100m, tmp_path, variant):
 
 def test_run_eval_refusals(built_100m, tmp_path):
     base = ["--prefix", built_100m[0], "--device", "cpu", "--out", str(tmp_path / "x")]
-    with pytest.raises(NotImplementedError, match="refine"):
-        run_eval.main(base + ["--variant", "inmemory", "--refine"])
+    with pytest.raises(ValueError, match="refine"):
+        run_eval.main(base + ["--variant", "base", "--refine"])
     with pytest.raises(ValueError, match="nbr_codes"):
         run_eval.main(base + ["--variant", "inmemory", "--neighbor-codes"])

@@ -93,13 +93,26 @@ with tempfile.TemporaryDirectory() as tmp:
     row = run_eval.main(["--prefix", prefix, "--grid", "16", "--nq", "16", "--mmap",
                          "--n-pipeline", "2", "--device", "cpu", "--out", tmp + "/e.json"])
     assert row["n_points"] == 3000 and row["points"][0]["L"] == 16, row
+# the bench's merge of two result lines and its refinement on a scripted search
+from bang_tpu_torch import bench
+from bang_tpu_torch.scripts import merge_bench_json
+merged, carried = merge_bench_json.merge({"a": {"error": "e"}}, {"a": {"L": 1}}, "e.json")
+assert carried == ["a"] and merged["a"] == {"L": 1, "carried_from": "e.json"}, merged
+bench._measure_point = lambda *a, **k: {"L": a[5], "beam": a[6], "extra": a[7],
+                                        "entry": k["entry_mode"], "qps": 1e4 / a[5],
+                                        "recall": 95.0}
+best = bench._refine_knee(None, None, None, None, None, 10, {"L": 16, "beam": 2,
+                                                            "extra": 4, "qps": 1.0})
+assert best["frontier"] and best["L"] == 11, best
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not any(m.split(".")[0] in ("jax", "bang_tpu") for m in loaded), loaded
 for new in ("ops.bloom", "utils.graph_tools", "harness.serving", "models.streaming",
             "utils.validate", "formats.texmex", "scripts.exp_dma_tiled",
             "parallel.sharded", "parallel.partition", "parallel.pq_tp",
             "parallel.base_tp", "formats.bigbuild", "formats.preprocess", "entry",
-            "scripts.bundles", "scripts.build_100m", "scripts.run_eval"):
+            "scripts.bundles", "scripts.build_100m", "scripts.run_eval", "bench",
+            "scripts.merge_bench_json", "scripts.exp_bloom", "scripts.exp_large_l",
+            "scripts.profile_base_step", "scripts.exp_iter_profile"):
     assert "bang_tpu_torch." + new in loaded, new
 print("no-jax search ok")
 """
