@@ -7,14 +7,19 @@ with L2 / MIPS distance functions (bang.h:26-30), over the three variants:
 "base" (host-RAM graph, PQ codes on the device; models/base.py),
 "inmemory" and "exactdistance" (all on the device).
 
-PyTorch runs eagerly, so there is nothing to compile per shape:
-`bang_alloc(Q)` runs one warm-up search at the batch shape, which builds
-the kernels (first use) and fills the caching allocator, and records Q.
-With ENABLE_CACHE_WARMUP it first runs `utils/graph_tools.warmup_touch`
-(the reference's BFS warm-up of the codes), as the JAX facade does.
-`bang_query` then pads a smaller batch up to Q and splits a larger one into
-batches of Q, as the JAX facade does, so that every search runs at the
-shape the warm-up ran.
+`bang_alloc(Q)` captures, as the JAX facade's compiles: one search at the
+batch shape runs the eager loop (it builds the kernels and fills the
+caching allocator), then, on the card, captures the search as CUDA graphs
+(models/compiled.py for the HBM variants: one graph launch a search, its
+loop a WHILE node; models/base.py: one graph a sub-batch's step), and Q is
+recorded. With ENABLE_CACHE_WARMUP it first runs
+`utils/graph_tools.warmup_touch` (the reference's BFS warm-up of the
+codes), as the JAX facade does. `bang_query` then pads a smaller batch up
+to Q and splits a larger one into batches of Q, as the JAX facade does, so
+that every search replays the captured shape; its one blocking wait is the
+readback of the ids, distances and counters (`compiled.readback`).
+`bang_set_searchparams` with new parameters and `bang_unload` free the
+graphs and their memory pools.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from bang_tpu_torch.constants import (
 )
 from bang_tpu_torch.device import resolve_device
 from bang_tpu_torch.formats.preprocess import preprocess_queries_mips
+from bang_tpu_torch.models import compiled
 from bang_tpu_torch.utils.config import SearchParams
 from bang_tpu_torch.utils.logging import log_message
 
@@ -109,17 +115,21 @@ class BANGSearch:
     ) -> None:
         """Set k (recall_param) and L (worklist length); extra kwargs feed
         SearchParams (beam_width, extra_iters, rerank, capabilities, ...).
-        Forgets bang_alloc's batch shape."""
-        self._params = SearchParams(
+        Forgets bang_alloc's batch shape; new parameters free the captured
+        graphs."""
+        params = SearchParams(
             L=worklist_length, k=recall_param, dist_func=self.dist_func, **kwargs
         )
+        if params != self._params:
+            self._drop_graphs()
+        self._params = params
         self._batch = None
 
     def bang_alloc(self, num_queries: int) -> None:
-        """Warm up at this batch shape (kernel build, allocator) and record
-        it: later batches are padded or split to it. With ENABLE_CACHE_WARMUP
-        the BFS warm-up runs first (for base the BFS walks the host
-        records)."""
+        """Warm up and capture at this batch shape (one eager search, then
+        the CUDA graphs on the card) and record it: later batches are padded
+        or split to it. With ENABLE_CACHE_WARMUP the BFS warm-up runs first
+        (for base the BFS walks the host records)."""
         if self._params is None:
             raise RuntimeError("call bang_set_searchparams first")
         if self._params.capabilities & ENABLE_CACHE_WARMUP:
@@ -160,17 +170,26 @@ class BANGSearch:
         return np.asarray(ids)[:nq].astype(RESULT_DTYPE), np.asarray(dists)[:nq]
 
     def bang_free(self) -> None:
-        """Forget bang_alloc's batch shape; search buffers are per call."""
+        """Forget bang_alloc's batch shape (the captured graphs stay until
+        new parameters or bang_unload)."""
         self._batch = None
 
     def bang_unload(self) -> None:
-        """Drop the index (or base's codes and searcher); its device memory
-        returns to PyTorch's caching allocator."""
+        """Free the captured graphs, then drop the index (or base's codes
+        and searcher); their device memory returns to PyTorch's caching
+        allocator."""
+        self._drop_graphs()
         self._index = None
         self._searcher = None
         self._batch = None
 
     # -- internals ----------------------------------------------------------
+
+    def _drop_graphs(self) -> None:
+        if self._searcher is not None:
+            self._searcher.drop_graphs()
+        if self._index is not None:
+            compiled.drop_graphs(self._index)
 
     def _dim(self) -> int:
         if self.variant == "base":
@@ -189,5 +208,6 @@ class BANGSearch:
             from bang_tpu_torch.models.inmemory import search_inmemory as search
 
         ids, dists, stats = search(self._index, queries, self._params)
-        self.last_stats = stats
-        return ids.cpu().numpy(), dists.cpu().numpy()
+        ids, dists, values = compiled.readback(ids, dists, stats.device_values())
+        self.last_stats = stats.sync(values.tolist())
+        return ids.numpy(), dists.numpy()

@@ -49,10 +49,13 @@ persistent compile cache. The card's host has no tunnel, and the kernels
 build in seconds (ops/_build.py).
 
 `qps_pipelined` keeps bench.py's protocol (6 calls issued, one synchronise)
-but not its effect: the port's traversal reads `active.any()` back once per
-iteration (models/traversal.traverse), so six calls cannot overlap as JAX's
-lazy calls do, and qps_pipelined is close to back-to-back single-shot calls
-(ROADMAP Queue 1 item 13).
+and its effect: on the card a search is one launch of its captured graph
+(models/compiled.py: the traversal is a WHILE node, no host read inside a
+call), so a call returns at once and six calls queue on the stream, the
+host's work for the next one (its query copy, the launch, the output
+clones) overlapping the card's for the one before, as JAX's lazy calls do.
+In `_measure_point` a call's `stats.sync()` is what blocks: a timed call
+ends when its counters are read.
 """
 
 from __future__ import annotations
@@ -75,12 +78,11 @@ BASELINE_NOTE = (
     "ratio = this card's QPS with 6 batches issued and one synchronise "
     "(qps_pipelined) on its largest self-built synthetic, against the "
     "reference's published SIFT1B (1B-point) A100 number; smaller datasets "
-    "need fewer traversal iterations, see BASELINE.md and scale10m. The "
-    "port's traversal reads a flag back once per iteration, so the 6 calls "
-    "do not overlap and qps_pipelined is close to qps_single_shot (one "
-    "call at a time). device_qps: the queries over the CUDA-event time of "
-    "one full-batch search (harness/serving.measure_device_batch_latency), "
-    "the card's gaps between steps included."
+    "need fewer traversal iterations, see BASELINE.md and scale10m. A "
+    "search is one launch of its captured graph, so the 6 calls queue on "
+    "the card with no host read between them. device_qps: the queries over "
+    "the CUDA-event time of one full-batch search "
+    "(harness/serving.measure_device_batch_latency)."
 )
 
 N = int(os.environ.get("BENCH_N", 1_000_000))

@@ -65,6 +65,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -157,7 +158,9 @@ __global__ void __launch_bounds__(kMaxThreads)
                           const int32_t* __restrict__ parents,
                           int32_t* __restrict__ ids, float* __restrict__ dists,
                           int64_t n, int r, int d, int beam, int group,
-                          int row_pad, int q_pad, int query16) {
+                          int row_pad, int q_pad, int query16,
+                          unsigned long long* __restrict__ launches) {
+  count_launch(launches);
   extern __shared__ __align__(16) uint8_t smem[];
   const float* qs = reinterpret_cast<const float*>(smem);
   uint8_t* rowbuf = smem + q_pad;
@@ -217,7 +220,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 using Kernel = void (*)(const float*, const uint8_t*, const int32_t*, int32_t*, float*,
-                        int64_t, int, int, int, int, int, int, int);
+                        int64_t, int, int, int, int, int, int, int,
+                        unsigned long long*);
 
 template <int VW>
 Kernel pick(uintptr_t align) {
@@ -234,7 +238,8 @@ Kernel pick(uintptr_t align) {
 extern "C" int exact_frontier_launch(const void* queries, const void* rows,
                                      const void* parents, void* ids,
                                      void* dists, long long n, int q, int r,
-                                     int d, int beam, void* stream) {
+                                     int d, int beam, void* launches,
+                                     void* stream) {
   const int row_w = r * (8 + d);
   const int row_pad = (row_w + 15) & ~15;
   const int q_pad = (4 * d + 15) & ~15;
@@ -258,7 +263,7 @@ extern "C" int exact_frontier_launch(const void* queries, const void* rows,
       static_cast<const float*>(queries), static_cast<const uint8_t*>(rows),
       static_cast<const int32_t*>(parents), static_cast<int32_t*>(ids),
       static_cast<float*>(dists), (int64_t)n, r, d, beam, group, row_pad, q_pad,
-      query16);
+      query16, static_cast<unsigned long long*>(launches));
   return (int)cudaGetLastError();
 }
 

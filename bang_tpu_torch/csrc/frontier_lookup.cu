@@ -52,6 +52,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -67,7 +68,9 @@ __global__ void __launch_bounds__(kMaxThreads)
                            const int32_t* __restrict__ parents,
                            int32_t* __restrict__ ids, float* __restrict__ dists,
                            int64_t n, int r, int m, int beam, int group,
-                           int row_pad) {
+                           int row_pad,
+                           unsigned long long* __restrict__ launches) {
+  count_launch(launches);
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t* tab = reinterpret_cast<const uint32_t*>(smem);
   uint8_t* rowbuf = smem + m * kChunkBytes;
@@ -124,7 +127,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 extern "C" int frontier_lookup_launch(const void* packed, const void* rows,
                                       const void* parents, void* ids,
                                       void* dists, long long n, int q, int r,
-                                      int m, int beam, void* stream) {
+                                      int m, int beam, void* launches,
+                                      void* stream) {
   const int row_w = r * (4 + m);
   const int row_pad = (row_w + 15) & ~15;
   const int table = m * kChunkBytes;
@@ -140,7 +144,7 @@ extern "C" int frontier_lookup_launch(const void* packed, const void* rows,
 
   const uintptr_t align = reinterpret_cast<uintptr_t>(rows) | (uintptr_t)row_w;
   void (*kernel)(const int32_t*, const uint8_t*, const int32_t*, int32_t*, float*,
-                 int64_t, int, int, int, int, int) =
+                 int64_t, int, int, int, int, int, unsigned long long*) =
       align % 16 == 0 ? &frontier_lookup_kernel<16>
       : align % 4 == 0 ? &frontier_lookup_kernel<4>
                        : &frontier_lookup_kernel<1>;
@@ -150,7 +154,8 @@ extern "C" int frontier_lookup_launch(const void* packed, const void* rows,
   kernel<<<q, threads, smem, (cudaStream_t)stream>>>(
       static_cast<const int32_t*>(packed), static_cast<const uint8_t*>(rows),
       static_cast<const int32_t*>(parents), static_cast<int32_t*>(ids),
-      static_cast<float*>(dists), (int64_t)n, r, m, beam, group, row_pad);
+      static_cast<float*>(dists), (int64_t)n, r, m, beam, group, row_pad,
+      static_cast<unsigned long long*>(launches));
   return (int)cudaGetLastError();
 }
 

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kWords = 128;  // packed words per (query, chunk) row
@@ -46,7 +48,9 @@ __global__ void frontier_packed_kernel(const int32_t* __restrict__ packed,
                                        const uint8_t* __restrict__ rows,
                                        int32_t* __restrict__ ids,
                                        float* __restrict__ dists, int r, int m,
-                                       int beam, int id_planes) {
+                                       int beam, int id_planes,
+                                       unsigned long long* __restrict__ launches) {
+  count_launch(launches);
   extern __shared__ uint4 smem4[];
   const uint32_t* tab = reinterpret_cast<const uint32_t*>(smem4);
   const int64_t q = blockIdx.x;
@@ -87,7 +91,7 @@ __global__ void frontier_packed_kernel(const int32_t* __restrict__ packed,
 extern "C" int frontier_packed_launch(const void* packed, const void* rows,
                                       void* ids, void* dists, int q, int r,
                                       int m, int beam, int id_planes,
-                                      void* stream) {
+                                      void* launches, void* stream) {
   if (id_planes != 0 && id_planes != 4) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)m * kWords * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
@@ -97,7 +101,7 @@ extern "C" int frontier_packed_launch(const void* packed, const void* rows,
   frontier_packed_kernel<<<q, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const int32_t*>(packed), static_cast<const uint8_t*>(rows),
       static_cast<int32_t*>(ids), static_cast<float*>(dists), r, m, beam,
-      id_planes);
+      id_planes, static_cast<unsigned long long*>(launches));
   return (int)cudaGetLastError();
 }
 

@@ -55,6 +55,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -92,7 +93,9 @@ template <int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
     pq_lookup_kernel(const int32_t* __restrict__ packed,
                      const uint8_t* __restrict__ codes, float* __restrict__ out,
-                     int c, int m, int group) {
+                     int c, int m, int group,
+                     unsigned long long* __restrict__ launches) {
+  count_launch(launches);
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t* tab = reinterpret_cast<const uint32_t*>(smem);
   uint8_t* tile = smem + m * kChunkBytes;
@@ -132,7 +135,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 // a 16-byte boundary and m*512 plus one row's stride must fit a block's
 // 227 KB of shared memory (the wrapper checks both).
 extern "C" int pq_lookup_launch(const void* packed, const void* codes, void* out,
-                                int q, int c, int m, void* stream) {
+                                int q, int c, int m, void* launches,
+                                void* stream) {
   const int ld = row_stride(m);
   const int table = m * kChunkBytes;
   // candidates per group: as many as fit kSmemTarget beside the table, or a
@@ -150,7 +154,8 @@ extern "C" int pq_lookup_launch(const void* packed, const void* codes, void* out
       group >= kMaxThreads ? kMaxThreads : (group + 31) / 32 * 32;
 
   const uintptr_t align = reinterpret_cast<uintptr_t>(codes) | (uintptr_t)m;
-  void (*kernel)(const int32_t*, const uint8_t*, float*, int, int, int) =
+  void (*kernel)(const int32_t*, const uint8_t*, float*, int, int, int,
+                 unsigned long long*) =
       align % 16 == 0 ? &pq_lookup_kernel<16>
       : align % 4 == 0 ? &pq_lookup_kernel<4>
                        : &pq_lookup_kernel<1>;
@@ -159,7 +164,8 @@ extern "C" int pq_lookup_launch(const void* packed, const void* codes, void* out
   if (err != cudaSuccess) return (int)err;
   kernel<<<q, threads, smem, (cudaStream_t)stream>>>(
       static_cast<const int32_t*>(packed), static_cast<const uint8_t*>(codes),
-      static_cast<float*>(out), c, m, group);
+      static_cast<float*>(out), c, m, group,
+      static_cast<unsigned long long*>(launches));
   return (int)cudaGetLastError();
 }
 

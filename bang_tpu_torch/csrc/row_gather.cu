@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -36,7 +38,9 @@ template <typename T>
 __global__ void row_gather_kernel(const T* __restrict__ rows,
                                   const int32_t* __restrict__ parents,
                                   T* __restrict__ out, int64_t n,
-                                  int64_t width) {  // width in units of T
+                                  int64_t width,  // in units of T
+                                  unsigned long long* __restrict__ launches) {
+  count_launch(launches);
   const int64_t i = blockIdx.x;
   const int64_t p = parents[i];
   T* dst = out + i * width;
@@ -53,7 +57,7 @@ __global__ void row_gather_kernel(const T* __restrict__ rows,
 // Returns a cudaError_t as int: 0 on a clean launch.
 extern "C" int row_gather_launch(const void* rows, const void* parents,
                                  void* out, long long n, int p, long long s,
-                                 void* stream) {
+                                 void* launches, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bool vec16 = s % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
@@ -61,11 +65,13 @@ extern "C" int row_gather_launch(const void* rows, const void* parents,
   if (vec16) {
     row_gather_kernel<uint4><<<p, kThreads, 0, st>>>(
         static_cast<const uint4*>(rows), static_cast<const int32_t*>(parents),
-        static_cast<uint4*>(out), (int64_t)n, (int64_t)(s / 16));
+        static_cast<uint4*>(out), (int64_t)n, (int64_t)(s / 16),
+        static_cast<unsigned long long*>(launches));
   } else {
     row_gather_kernel<uint8_t><<<p, kThreads, 0, st>>>(
         static_cast<const uint8_t*>(rows), static_cast<const int32_t*>(parents),
-        static_cast<uint8_t*>(out), (int64_t)n, (int64_t)s);
+        static_cast<uint8_t*>(out), (int64_t)n, (int64_t)s,
+        static_cast<unsigned long long*>(launches));
   }
   return (int)cudaGetLastError();
 }

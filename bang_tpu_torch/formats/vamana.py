@@ -31,7 +31,9 @@ gives the adjacency and the degrees one extra trash row at index N, which
 no edge points to and no search reads, and aims dropped writes at it: every
 step keeps its fixed shape, and the host reads the device only at the
 heartbeat, every 100 batches (plus the traversal's one `active.any()` read
-per iteration, ROADMAP Queue 1 item 13). `jnp.unique(size=, fill_value=)`
+per iteration: the build stays on the eager loop, traversal.traverse, not
+the captured one of models/compiled.py, because every batch builds new
+query tensors; ROADMAP Queue 1 item 13b). `jnp.unique(size=, fill_value=)`
 becomes a sort, a first-occurrence mask and a scatter into a buffer
 pre-filled with N; `lax.associative_scan(maximum)` becomes `torch.cummax`;
 `jnp.argsort` and `jnp.sort` are stable, as `torch.argsort(stable=True)`.

@@ -106,9 +106,9 @@ def measure_device_batch_latency(
 ) -> float:
     """ms per search of one batch on the index's device: `n_reps` searches
     between two CUDA events after a warm-up search (the host clock on a CPU
-    index). Not pure device time: the traversal reads `active.any()` back
-    once per iteration (ROADMAP Queue 1 item 13), so the span holds the
-    card's idle gaps while the host issues the next step."""
+    index). On a CUDA index each search is one launch of its captured graph
+    (models/compiled.py; the warm-up runs the eager loop and captures), so
+    the searches queue back to back and the span is the card's time."""
     if variant == "inmemory":
         from bang_tpu_torch.models.inmemory import search_inmemory as search
     elif variant == "exactdistance":

@@ -19,6 +19,20 @@ The reference gets the same overlap from 4 CUDA streams and a speculative
 parent prefetch (bang_search.cu:1384-1521), the JAX package from
 asynchronous dispatch and a stacked `device_get`. On the CPU the same loop
 runs synchronously, with no streams and no events.
+
+On the card each sub-batch's prologue (tables, entries, initial state) and
+step (K1 on codes[nbrs], then `_step_core`, written into the state's own
+buffers) are CUDA graphs, captured on the sub-batch's stream into its own
+memory pool (the sub-batches replay at once on their streams), as JAX
+compiles its `_base_step` once and donates its state. A step is then two
+host-to-device copies of the pinned staging into static device buffers
+(`nbrs`, `vecs`), one replay and two readback copies, where the eager step
+issued about 60 operations. The outer loop stays on the host, as in JAX:
+the host gather sits between steps. The first search of a key (the query
+split and SearchParams) runs the eager step, then captures; the searcher
+holds one key's graphs at a time. The chunk-sharded subclass
+(parallel/base_tp.py), whose shards may sit on several devices, stays
+eager.
 """
 
 from __future__ import annotations
@@ -38,7 +52,8 @@ from bang_tpu_torch.formats.graph import (
     load_metadata,
 )
 from bang_tpu_torch.formats.pq import load_pq
-from bang_tpu_torch.models.traversal import check_params, make_pq_distance_fn
+from bang_tpu_torch.models import compiled
+from bang_tpu_torch.models.traversal import check_params, make_pq_distance_fn, slot_index
 from bang_tpu_torch.native import gather_parents
 from bang_tpu_torch.ops.bloom import bloom_insert, bloom_positions, bloom_query, new_bloom
 from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_parents_beam
@@ -60,7 +75,7 @@ class BaseState(NamedTuple):
     l2_dists: torch.Tensor  # [Q, MI*P] f32 exact distances of expanded nodes
     bloom: Optional[torch.Tensor]  # [Q, BF + 1] u8 (ops/bloom.py) or None (exact)
     active: torch.Tensor  # [Q] bool
-    it: int  # host-side iteration counter
+    it: torch.Tensor  # int32 scalar on the device: iterations so far, from 1
 
 
 def _init_state(q: int, l: int, max_iters: int, entries: torch.Tensor,
@@ -87,7 +102,8 @@ def _init_state(q: int, l: int, max_iters: int, entries: torch.Tensor,
         bloom = bloom_insert(new_bloom(q, dev), entries,
                              torch.ones((q, p), dtype=torch.bool, device=dev))
     return BaseState(wl_dist, wl_ids, wl_vis, parent_valid, visited, l2d, bloom,
-                     torch.ones((q,), dtype=torch.bool, device=dev), 1)
+                     torch.ones((q,), dtype=torch.bool, device=dev),
+                     torch.ones((), dtype=torch.int32, device=dev))
 
 
 def _step_core(state: BaseState, nbrs, parent_vecs, queries_f32, raw, beam):
@@ -96,15 +112,17 @@ def _step_core(state: BaseState, nbrs, parent_vecs, queries_f32, raw, beam):
     dtype, and the candidates' PQ distances raw [Q, P*R] f32. Returns (new
     state, parents [Q, P] int32, active.any()). The visited and exact
     distance slots, and the bloom filter when the state has one, are written
-    in place (the old state is not read again)."""
-    it = state.it
+    in place (the old state is not read again), at slots indexed by the
+    device's `it`: the host loop steps only while it < max_iters."""
+    q, c = nbrs.shape
     # exact distances of the parents expanded now (their visited slots are
     # (it-1)*P ...): the cast is exact for integer data, a no-op for f32
     pd = ((parent_vecs.float() - queries_f32[:, None, :]) ** 2).sum(-1)  # [Q, P]
     l2d = state.l2_dists
-    l2d[:, (it - 1) * beam : it * beam] = pd.masked_fill(
-        ~(state.parent_valid & state.active[:, None]), float("inf"))
-    cand_valid = state.parent_valid.repeat_interleave(nbrs.shape[1] // beam, dim=1)
+    l2d.index_copy_(1, slot_index(state.it - 1, beam), pd.masked_fill(
+        ~(state.parent_valid & state.active[:, None]), float("inf")))
+    # repeat_interleave with an int count reads its output size back
+    cand_valid = state.parent_valid[:, :, None].expand(q, beam, c // beam).reshape(q, c)
 
     use_bloom = state.bloom is not None
     if use_bloom:
@@ -125,10 +143,10 @@ def _step_core(state: BaseState, nbrs, parent_vecs, queries_f32, raw, beam):
         wl_dist, wl_ids, wl_vis, beam
     )
     visited = state.visited_ids
-    visited[:, it * beam : (it + 1) * beam] = parents.masked_fill(~parent_valid,
-                                                                  INVALID_ID)
+    visited.index_copy_(1, slot_index(state.it, beam),
+                        parents.masked_fill(~parent_valid, INVALID_ID))
     new_state = BaseState(wl_dist, wl_ids, wl_vis, parent_valid, visited, l2d,
-                          state.bloom, active, it + 1)
+                          state.bloom, active, state.it + 1)
     return new_state, parents, active.any()
 
 
@@ -171,21 +189,20 @@ def _base_finish(state: BaseState, k: int):
 
 
 class _SubBatch:
-    """One pipeline sub-batch: its queries, PQ tables and traversal
-    state on the device, made inside its own stream's context (the caching
-    allocator ties memory to the stream it was allocated on); its pinned
-    staging (nbrs, vecs; written by the host gather) and readback (parents,
-    active) buffers; and the event recorded after its last step."""
+    """One pipeline sub-batch of q queries, kept from call to call while the
+    searcher's key holds: its CUDA stream, event, pinned staging (nbrs,
+    vecs; written by the host gather) and readback (parents, active)
+    buffers; its static query buffer on the device; once captured, the
+    graphs of its prologue and step, their pool and their static buffers.
+    Device work is enqueued inside its stream's context (the caching
+    allocator ties memory to the stream it was allocated on)."""
 
-    def __init__(self, searcher, queries: np.ndarray, params: SearchParams, current):
+    def __init__(self, searcher, q: int, params: SearchParams):
         dev = searcher.device
         beam = params.beam_width
-        q = len(queries)
         cuda = dev.type == "cuda"
         self.stream = torch.cuda.Stream(dev) if cuda else None
         self.event = torch.cuda.Event() if cuda else None
-        if cuda:
-            self.stream.wait_stream(current)  # the codes and codebook uploads
         self.nbrs_host = torch.empty((q, beam * searcher.meta.degree),
                                      dtype=torch.int32, pin_memory=cuda)
         self.vecs_host = torch.empty((q, beam, searcher.vec_bytes), dtype=torch.uint8,
@@ -193,21 +210,97 @@ class _SubBatch:
         self.parents_host = torch.zeros((q, beam), dtype=torch.int32, pin_memory=cuda)
         self.active_host = torch.ones((1,), dtype=torch.bool, pin_memory=cuda)
         with self.context():
-            self.queries = torch.tensor(queries, device=dev)
-            self.tables = searcher._prepare_tables(self.queries)
-            entries = searcher._select_entries(self.queries, self.tables, params, beam)
-            self.state = _init_state(q, params.L, params.max_iters, entries, beam,
-                                     params.visited_mode == "bloom")
-            # a blocking copy: it waits for this stream
-            self.parents_host[:, : entries.shape[1]].copy_(entries)
-        self.pending = False  # a step was dispatched and not read back yet
-        self.done = False
+            self.queries = torch.empty((q, searcher.meta.dim), dtype=torch.float32,
+                                       device=dev)
+        self.graphs = None  # (prologue, step) once captured
 
     def context(self):
         """This sub-batch's stream as the current one (nothing on the CPU)."""
         if self.stream is None:
             return contextlib.nullcontext()
         return torch.cuda.stream(self.stream)
+
+    def _prologue(self, searcher, params: SearchParams):
+        """Tables, entries and the initial state of self.queries."""
+        self.tables = searcher._prepare_tables(self.queries)
+        self.entries = searcher._select_entries(self.queries, self.tables, params,
+                                                params.beam_width)
+        self.state = _init_state(self.queries.shape[0], params.L, params.max_iters,
+                                 self.entries, params.beam_width,
+                                 params.visited_mode == "bloom")
+
+    def begin(self, searcher, queries: np.ndarray, params: SearchParams, current):
+        """Start a call on `queries`: the prologue (its graph's replay once
+        captured), then the entries copied to the parents' staging, a
+        blocking copy that waits for this stream."""
+        if self.stream is not None:
+            self.stream.wait_stream(current)  # the codes and codebook uploads
+        with self.context():
+            self.queries.copy_(compiled.device_queries(queries, self.queries))
+            if self.graphs is None:
+                self._prologue(searcher, params)
+            else:
+                self.graphs[0].replay()
+            self.parents_host[:, : self.entries.shape[1]].copy_(self.entries)
+        self.pending = False  # a step was dispatched and not read back yet
+        self.done = False
+
+    def dispatch(self, searcher, beam: int) -> None:
+        """Enqueue one step from the staging: the host-to-device copies, the
+        step (its graph's replay once captured),
+        the readback copies of the next parents and the flag, the event.
+        The staging may be rewritten only after the event."""
+        dev = searcher.device
+        with self.context():
+            if self.graphs is None:
+                nbrs = self.nbrs_host.to(dev, non_blocking=True)
+                vecs = self.vecs_host.to(dev, non_blocking=True).view(searcher.vec_dtype)
+                self.state, parents, active_any = searcher._run_step(
+                    self.state, nbrs, vecs, self.queries, self.tables, beam)
+            else:
+                self.nbrs.copy_(self.nbrs_host, non_blocking=True)
+                self.vecs.copy_(self.vecs_host, non_blocking=True)
+                self.graphs[1].replay()
+                parents, active_any = self.step_out
+            self.parents_host.copy_(parents, non_blocking=True)
+            self.active_host.copy_(active_any.view(1), non_blocking=True)
+            if self.event is not None:
+                self.event.record()
+
+    def capture(self, searcher, params: SearchParams) -> None:
+        """Capture the prologue and the step on this sub-batch's stream,
+        into one memory pool of its own; the static nbrs and vecs buffers
+        feed the step. Runs after an eager call, which warmed them up.
+        Records `capture_s` and `graph_bytes` (the pool and the two
+        buffers)."""
+        beam = params.beam_width
+        dev = searcher.device
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()  # as each capture does: the pool's bytes show
+        reserved = torch.cuda.memory_reserved(dev)
+        with self.context():
+            self.nbrs = torch.empty_like(self.nbrs_host, device=dev)
+            self.vecs = torch.empty_like(self.vecs_host, device=dev)
+        pro, step = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        compiled.capture(pro, lambda: self._prologue(searcher, params), dev,
+                         stream=self.stream)
+
+        def body():
+            new, parents, active_any = searcher._run_step(
+                self.state, self.nbrs, self.vecs.view(searcher.vec_dtype),
+                self.queries, self.tables, beam)
+            for old, value in zip(self.state, new):
+                if value is not old:
+                    old.copy_(value)
+            return parents, active_any
+
+        self.step_out = compiled.capture(step, body, dev, pool=pro.pool(),
+                                         stream=self.stream)
+        self.graphs = (pro, step)
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        self.graph_bytes = torch.cuda.memory_reserved(dev) - reserved
 
     def wait(self) -> None:
         """Block until this sub-batch's last step and readback have run."""
@@ -264,6 +357,15 @@ class BaseVariantSearcher:
         self.timers = StageTimers(enabled=False)
         self.last_n_steps = 0
         self.last_n_d2h = 0
+        self._subs_key, self._subs = None, []  # the sub-batches of one key
+
+    # capture each sub-batch's prologue and step on the card (a subclass
+    # whose step spans several devices sets False)
+    captured = True
+
+    def drop_graphs(self) -> None:
+        """Free the sub-batches, their graphs and their pools."""
+        self._subs_key, self._subs = None, []
 
     def _prepare_tables(self, sub_queries):
         """A sub-batch's PQ tables, in whatever form `_run_step` and
@@ -326,12 +428,18 @@ class BaseVariantSearcher:
         dev = self.device
         q_total = queries.shape[0]
         nb = min(self.n_pipeline_batches, q_total)
-        bounds = np.linspace(0, q_total, nb + 1).astype(int)
+        bounds = tuple(np.linspace(0, q_total, nb + 1).astype(int).tolist())
         beam = params.beam_width
         r = self.meta.degree
         current = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
-        subs = [_SubBatch(self, queries[bounds[i] : bounds[i + 1]], params, current)
-                for i in range(nb)]
+        key = (bounds, params)
+        if key != self._subs_key:
+            self._subs = [_SubBatch(self, bounds[i + 1] - bounds[i], params)
+                          for i in range(nb)]
+            self._subs_key = key
+        subs = self._subs
+        for i, sb in enumerate(subs):
+            sb.begin(self, queries[bounds[i] : bounds[i + 1]], params, current)
         self.last_n_steps = 0  # device steps dispatched (all sub-batches)
         self.last_n_d2h = 0  # readback waits (one per outer iteration)
 
@@ -357,17 +465,8 @@ class BaseVariantSearcher:
                     self._host_gather(sb.parents_host.numpy().reshape(-1),
                                       sb.nbrs_host.numpy().reshape(-1, r),
                                       sb.vecs_host.numpy().reshape(-1, self.vec_bytes))
-                with self.timers.stage("dispatch"), sb.context():
-                    # the staging may be rewritten only after this
-                    # sub-batch's event, which follows these copies
-                    nbrs = sb.nbrs_host.to(dev, non_blocking=True)
-                    vecs = sb.vecs_host.to(dev, non_blocking=True).view(self.vec_dtype)
-                    sb.state, parents, active_any = self._run_step(
-                        sb.state, nbrs, vecs, sb.queries, sb.tables, beam)
-                    sb.parents_host.copy_(parents, non_blocking=True)
-                    sb.active_host.copy_(active_any.view(1), non_blocking=True)
-                    if sb.event is not None:
-                        sb.event.record()
+                with self.timers.stage("dispatch"):
+                    sb.dispatch(self, beam)
                 sb.pending = True
                 self.last_n_steps += 1
 
@@ -381,6 +480,10 @@ class BaseVariantSearcher:
         # int32)
         out = torch.cat([ids, dists.view(torch.int32)], dim=1).cpu()
         k = params.k
+        if self.captured and dev.type == "cuda":
+            for sb in subs:
+                if sb.graphs is None:
+                    sb.capture(self, params)
         if self.timers.enabled:
             self.timers.ms["wall"] += (time.perf_counter() - t_wall) * 1000.0
         return out[:, :k].numpy(), out[:, k:].view(torch.float32).numpy()

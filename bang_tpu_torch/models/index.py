@@ -51,6 +51,7 @@ import torch
 from bang_tpu_torch.device import resolve_device
 from bang_tpu_torch.formats.graph import GraphIndex, load_graph_index
 from bang_tpu_torch.formats.pq import PQData, load_pq
+from bang_tpu_torch.models import compiled
 from bang_tpu_torch.ops.l2 import pack_exact_frontier_rows
 from bang_tpu_torch.ops.pq import PQCodebook, prepare_pq_codebook
 from bang_tpu_torch.ops.pq_kernels import pack_frontier_rows
@@ -104,12 +105,15 @@ class DeviceIndex:
 
 def free_device_index(index: DeviceIndex) -> None:
     """Release an index's device memory now (bang_tpu/models/index.py:252):
-    every tensor field, the codebook included, is set to None, and on a
-    CUDA index the caching allocator's free blocks go back to the card, so
+    its captured loops and their pools are freed (models/compiled.py;
+    their graphs hold the index's tensors), every tensor field, the
+    codebook included, is set to None, and on a CUDA index the caching
+    allocator's free blocks go back to the card, so
     a bench that loads several multi-GB indices one after another starts
     each on a clean pool. Other references to the tensors keep them alive,
     as in PyTorch anywhere. `BANGSearch.bang_unload` only drops its
     references (ROADMAP, Known differences)."""
+    compiled.drop_graphs(index)
     cuda = index.vectors is not None and index.vectors.device.type == "cuda"
     for f in dataclasses.fields(index):
         if isinstance(getattr(index, f.name), (torch.Tensor, PQCodebook)):

@@ -5,6 +5,11 @@ Reference behavior (BANG_Inmemory/parANN.cu:77-906): graph and PQ codes
 live on the accelerator; traversal distances come from per-query PQ
 tables; after the walk every expanded node is re-ranked with exact L2
 against the full-precision vectors and the top-k is returned.
+
+On CUDA tensors a search is one launch of its captured graph
+(models/compiled.py: prologue, the traversal as a WHILE node, re-rank); on
+CPU tensors the eager loop runs (`search_inmemory_eager`, the captured
+loop's plain version).
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from bang_tpu_torch.device import assert_exact_float32
+from bang_tpu_torch.models import compiled
 from bang_tpu_torch.models.entry import entry_points
 from bang_tpu_torch.models.index import DeviceIndex
 from bang_tpu_torch.models.traversal import (
@@ -62,14 +68,34 @@ def finish_inmemory(index: DeviceIndex, queries_f32, final, params: SearchParams
 
 def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
     """Batched PQ-traversal search with exact re-rank on the index's device
-    (prepare_inmemory, traverse, finish_inmemory).
+    (prepare_inmemory, the traversal, finish_inmemory): on a CUDA index the
+    captured graph of the index's graph cache (models/compiled.py; the
+    first call of a search shape runs the eager loop, then captures), on a
+    CPU index the eager loop.
 
     queries: [Q, D] tensor or numpy array. Returns (ids [Q, k] int32,
-    dists [Q, k] f32 squared L2, SearchStats).
+    dists [Q, k] f32 squared L2, SearchStats), on the device, with no host
+    wait.
 
     Under entry_mode="sampled" the entries and their worklist seeds come
     from exact distances to a strided sample (models/entry.py); the walk
     itself still runs on PQ distances, as in the JAX package."""
+    dev = index.vectors.device
+    if dev.type != "cuda":
+        return search_inmemory_eager(index, queries, params)
+    q = torch.as_tensor(queries)
+    (ids, dists), stats = compiled.search(
+        index, ("inmemory", tuple(q.shape), params), q, dev, params.max_iters,
+        lambda qs: prepare_inmemory(index, qs, params),
+        lambda queries_f32, final: finish_inmemory(index, queries_f32, final,
+                                                   params)[:2])
+    return ids, dists, stats
+
+
+def search_inmemory_eager(index: DeviceIndex, queries, params: SearchParams):
+    """search_inmemory on the eager loop (traversal.traverse, one host read
+    a step), on any device: the CPU's search and the captured loop's plain
+    version."""
     step, state, queries_f32 = prepare_inmemory(index, queries, params)
     final = traverse(step, state, params.max_iters)
     return finish_inmemory(index, queries_f32, final, params)

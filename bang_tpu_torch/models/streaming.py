@@ -23,8 +23,12 @@ clears the flag, delete sets it. The tensors hold capacity + 1 rows: row
 `capacity` is the trash row that `_insert_batch` aims the writes at that
 the JAX scatters drop; it is deleted forever, so no search or repair takes
 it for a live node. The search is the exact scattered traversal (plain
-PyTorch, no kernel), as in the JAX package. Ties in the result and in the
-batch peers break lowest index first (a stable sort, as `lax.top_k`).
+PyTorch, no kernel), as in the JAX package, on the eager loop
+(traversal.traverse, one host read an iteration), not the captured one of
+models/compiled.py: the graph changes between searches and each batch
+builds new query tensors (ROADMAP Queue 1 item 13b). Ties in the result
+and in the batch peers break lowest index first (a stable sort, as
+`lax.top_k`).
 """
 
 from __future__ import annotations

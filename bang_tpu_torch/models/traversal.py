@@ -8,12 +8,19 @@ visited filter -> distance -> merge -> parent select over the whole batch.
 schedule). Distances during traversal are squared L2 (no square roots, as
 in the reference and DiskANN's ground truth).
 
-The loop runs on the host and reads `active.any()` back once per
-iteration, as the reference reads its `nextIter` flag (parANN.cu:595);
-removing that sync (CUDA graphs over blocks of iterations) is ROADMAP
-Queue 1 item 13. Independent walks (the shards of parallel/sharded.py)
-step together in rounds, with one read of their stacked flags a round
-(`traverse_together`). Two distance functions drive it: PQ table lookup
+The iteration counter `it` is an int32 scalar on the device, as in JAX,
+and the loop's condition is JAX's `lax.while_loop` condition,
+`(it < max_iters) & active.any()` (`go_flag`). Two loops run the same
+step. On CUDA tensors the search is one CUDA graph whose WHILE node
+evaluates that condition on the device (models/compiled.py) and runs its
+body, `step_`, the step written into the state's own buffers, only while
+the condition holds. On CPU tensors, and for the callers that build new
+tensors every batch (formats/vamana.py, models/streaming.py), `traverse`
+is the loop's plain version: the host counts the iterations and reads `active.any()`
+once per iteration, as the reference reads its `nextIter` flag
+(parANN.cu:595). Independent walks (the shards of parallel/sharded.py on
+the CPU) step together in rounds, with one read of their stacked flags a
+round (`traverse_together`). Two distance functions drive it: PQ table lookup
 (`make_pq_distance_fn`, kernels K1 and K2) and exact L2
 (`make_exact_distance_fn`, kernel K3). Two visited sets filter the
 candidates: the exact mask (ops/visited.exact_new_mask, the default) or the
@@ -50,36 +57,48 @@ class TraversalState(NamedTuple):
     visited_ids: torch.Tensor  # [Q, MI*P] i32 — expansion order, INVALID padding
     bloom: Optional[torch.Tensor]  # [Q, BF + 1] u8 (ops/bloom.py) or None (exact)
     active: torch.Tensor  # [Q] bool
-    it: int  # host-side iteration counter
+    it: torch.Tensor  # int32 scalar on the device: iterations so far, from 1
     n_expanded: torch.Tensor  # int64 scalar — total parents expanded
     n_dist_comps: torch.Tensor  # int64 scalar — candidate distances computed
 
 
 class SearchStats:
     """Search statistics (iterations, expanded parents, distance
-    computations). The two counters stay on the device until first read;
-    `sync()` fetches them."""
+    computations). The counters stay on the device until first read;
+    `sync()` fetches all three in one copy, so a search call does not
+    block."""
 
-    __slots__ = ("iters", "_n_expanded", "_n_dist_comps")
+    __slots__ = ("_values", "_fetched")
 
-    def __init__(self, iters: int, n_expanded, n_dist_comps):
-        self.iters = int(iters)
-        self._n_expanded = n_expanded
-        self._n_dist_comps = n_dist_comps
+    def __init__(self, iters, n_expanded, n_dist_comps):
+        self._values = (iters, n_expanded, n_dist_comps)
+        self._fetched = not any(isinstance(v, torch.Tensor) for v in self._values)
 
-    def sync(self) -> "SearchStats":
-        if isinstance(self._n_expanded, torch.Tensor):
-            self._n_expanded = int(self._n_expanded.item())
-            self._n_dist_comps = int(self._n_dist_comps.item())
+    def device_values(self) -> torch.Tensor:
+        """The three counters as one int64 [3] tensor on their device."""
+        return torch.stack([torch.as_tensor(v).long() for v in self._values])
+
+    def sync(self, values=None) -> "SearchStats":
+        """Fetch the counters, or take `values`, the host copy of
+        device_values() a caller read with its results."""
+        if not self._fetched:
+            if values is None:
+                values = self.device_values().tolist()
+            self._values = tuple(int(v) for v in values)
+            self._fetched = True
         return self
 
     @property
+    def iters(self) -> int:
+        return self.sync()._values[0]
+
+    @property
     def n_expanded(self) -> int:
-        return self.sync()._n_expanded
+        return self.sync()._values[1]
 
     @property
     def n_dist_comps(self) -> int:
-        return self.sync()._n_dist_comps
+        return self.sync()._values[2]
 
     def __repr__(self):
         return (f"SearchStats(iters={self.iters}, n_expanded={self.n_expanded}, "
@@ -135,19 +154,37 @@ def init_state(q: int, l: int, max_iters: int, entries: torch.Tensor,
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     return TraversalState(
         wl_dist, wl_ids, wl_vis, parents, parent_valid, visited, bloom,
-        torch.ones((q,), dtype=torch.bool, device=dev), 1, zero, zero.clone(),
+        torch.ones((q,), dtype=torch.bool, device=dev),
+        torch.ones((), dtype=torch.int32, device=dev), zero, zero.clone(),
     )
 
 
+def slot_index(it: torch.Tensor, beam: int):
+    """The `beam` visited-list slots of iteration `it` (a device scalar),
+    it*beam ... it*beam + beam - 1, as an int64 index on its device. Both
+    loops step only while it < max_iters, so the slots stay in range."""
+    return it.long() * beam + torch.arange(beam, device=it.device)
+
+
+def go_flag(state, max_iters: int, out=None) -> torch.Tensor:
+    """The loop's condition on the device, JAX's while_loop condition:
+    (it < max_iters) & active.any(), a bool scalar (written into `out` when
+    given)."""
+    return torch.logical_and(state.it < max_iters, state.active.any(), out=out)
+
+
 def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
-    """Build the per-iteration body.
+    """Build the per-iteration body, `step(state) -> new state`.
 
     `distance_fn(cand_ids [Q, C], parents [Q, P]) -> [Q, C] f32`. When
     `distance_fn.frontier_fn(parents) -> (cand_ids, dists)` exists (fused
     rows), one call yields both and `adj` is not read: pass None.
     `adj`: [N, R] int32 tensor (scattered layout) or None. use_bloom: the
-    visited set is the state's bloom filter (updated in place), not the
-    exact mask."""
+    visited set is the state's bloom filter, not the exact mask.
+
+    The visited list and the bloom filter are written in place (the old
+    state does not read them again); the rest of the new state is new
+    tensors, which `step_` writes into the old state's buffers."""
     frontier_fn = getattr(distance_fn, "frontier_fn", None)
     if adj is not None:
         r = adj.shape[1]
@@ -163,7 +200,8 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
         else:
             cand = adj[state.parents.long()].reshape(q, beam * r)
             raw = None
-        cand_valid = state.parent_valid.repeat_interleave(r, dim=1)
+        # repeat_interleave with an int count reads its output size back
+        cand_valid = state.parent_valid[:, :, None].expand(q, beam, r).reshape(q, beam * r)
 
         if use_bloom:
             pos = bloom_positions(cand, state.bloom.shape[1] - 1)  # query + insert
@@ -185,11 +223,9 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
         parents, parent_valid, active, wl_vis = select_parents_beam(
             wl_dist, wl_ids, wl_vis, beam
         )
-        # in place: the previous state's visited list is not read again
         visited = state.visited_ids
-        visited[:, state.it * beam : (state.it + 1) * beam] = torch.where(
-            parent_valid, parents, torch.full_like(parents, INVALID_ID)
-        )
+        vals = torch.where(parent_valid, parents, torch.full_like(parents, INVALID_ID))
+        visited.index_copy_(1, slot_index(state.it, beam), vals)
         return TraversalState(
             wl_dist, wl_ids, wl_vis, parents, parent_valid, visited, state.bloom,
             active, state.it + 1,
@@ -198,6 +234,18 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
         )
 
     return step
+
+
+def step_(step, state: TraversalState) -> TraversalState:
+    """One iteration written into `state`'s own buffers: the body of the
+    captured loop (models/compiled.py), replayed on the same buffers, as
+    JAX's while_loop reuses its donated carry. Its WHILE node runs it only
+    while go_flag holds, as JAX's loop runs its body. Returns `state`."""
+    new = step(state)
+    for old, value in zip(state, new):
+        if value is not old:  # the visited list and the bloom filter are
+            old.copy_(value)  # written in place already
+    return state
 
 
 def start_traversal(adj, distance_fn, medoid: int, q: int, l: int,
@@ -228,18 +276,21 @@ def start_traversal(adj, distance_fn, medoid: int, q: int, l: int,
 
 def traverse(step, state: TraversalState, max_iters: int) -> TraversalState:
     """Step until `max_iters` iterations or until no query has an unvisited
-    worklist entry left (one host read of `active.any()` per iteration);
-    returns the final state."""
-    while state.it < max_iters and bool(state.active.any()):
+    worklist entry left; returns the final state. The captured loop's plain
+    version: the host counts the iterations (the device's `it` starts at 1
+    and gains one a step) and reads `active.any()` once per iteration."""
+    it = 1
+    while it < max_iters and bool(state.active.any()):
         state = step(state)
+        it += 1
     return state
 
 
-def _still_live(states, idx, max_iters: int, home) -> list:
-    """The walks of `idx` that step again: those under `max_iters` whose
-    `active.any()` holds, read for all of them at once (their flags stacked
-    on `home`, one host read)."""
-    idx = [i for i in idx if states[i].it < max_iters]
+def _still_live(states, its, idx, max_iters: int, home) -> list:
+    """The walks of `idx` that step again: those under `max_iters` (their
+    host counts `its`) whose `active.any()` holds, read for all of them at
+    once (their flags stacked on `home`, one host read)."""
+    idx = [i for i in idx if its[i] < max_iters]
     if not idx:
         return []
     flags = torch.stack([states[i].active.any().to(home) for i in idx]).tolist()
@@ -255,11 +306,13 @@ def traverse_together(walks, max_iters: int, home) -> list:
     walk takes exactly the iterations, and ends in exactly the state, that
     `traverse` gives it. Returns the final states in the walks' order."""
     states = [state for _, state in walks]
-    live = _still_live(states, range(len(walks)), max_iters, home)
+    its = [1] * len(walks)
+    live = _still_live(states, its, range(len(walks)), max_iters, home)
     while live:
         for i in live:
             states[i] = walks[i][0](states[i])
-        live = _still_live(states, live, max_iters, home)
+            its[i] += 1
+        live = _still_live(states, its, live, max_iters, home)
     return states
 
 
@@ -355,7 +408,8 @@ def make_pq_distance_fn(queries_f32, codebook, codes, fused_rows=None):
             return frontier_decode_plain(tables, fused_rows, parents)
 
     def seed_fn(cand_ids, parents=None):
-        node_codes = codes[cand_ids[0, 0].long()].long()  # same node for all
+        # same node for all; a [1] index, not a 0-d one, which reads back
+        node_codes = codes[cand_ids[0, :1].long()][0].long()
         recon = codebook.piv_chunks[
             torch.arange(m, device=codes.device), node_codes
         ]  # [m, dmax]

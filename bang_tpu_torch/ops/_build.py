@@ -1,8 +1,10 @@
 """Build the CUDA kernels under `csrc/` with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C entry point `<name>_launch` that takes
-device pointers (`tensor.data_ptr()`), int shapes and the CUDA stream, and
-returns `cudaGetLastError()` as an int. No PyTorch header is included, so a
+device pointers (`tensor.data_ptr()`), int shapes, the kernel's launch
+counter (`launch_counter`) and the CUDA stream, and returns
+`cudaGetLastError()` as an int; `graph_loop.cu` (models/compiled.py)
+has two more entry points (OTHER_ENTRY_POINTS). No PyTorch header is included, so a
 build takes seconds, not minutes.
 
 The build runs at first use into `bang_tpu_torch/_build/` (listed in
@@ -41,13 +43,20 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of each kernel's entry point: (argtypes) -> int cudaError_t
+# C signature of each kernel's entry point: (argtypes) -> int cudaError_t;
+# a kernel's last two are its launch counter and the stream
 SIGNATURES = {
-    "pq_lookup": (_P, _P, _P, _I, _I, _I, _P),
-    "frontier_lookup": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P),
-    "exact_frontier": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P),
-    "frontier_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "row_gather": (_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _P),
+    "pq_lookup": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "frontier_lookup": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P),
+    "exact_frontier": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P),
+    "frontier_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "row_gather": (_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _P, _P),
+    "graph_loop": (_P, _P),
+}
+# the other entry points of a source, with their argtypes (-> int cudaError_t)
+OTHER_ENTRY_POINTS = {
+    "graph_loop": {"graph_loop_build": (_P, _P, _P, _P, _P, _P),
+                   "graph_loop_destroy": (_P, _P)},
 }
 
 # An H100 block can use at most 227 KB (232,448 bytes) of shared memory.
@@ -60,6 +69,11 @@ MAX_PACKED_CHUNKS = MAX_SHARED_BYTES // (128 * 4)  # 454
 MAX_LOOKUP_CHUNKS = MAX_PACKED_CHUNKS - 1  # 453
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# the wrappers whose kernels count their launches, in their counter slots
+COUNTED = ("pq_lookup", "frontier_lookup", "exact_frontier", "lookup_packed",
+           "frontier_packed", "row_gather")
+_COUNTERS: dict[int, torch.Tensor] = {}  # device index -> int64 [len(COUNTED)]
+_WRAPPERS: dict[str, object] = {}  # name -> wrapper, once it has launched
 BUILD_INFO: dict[str, dict] = {}  # name -> {"seconds", "cached", "log"}
 
 
@@ -115,6 +129,10 @@ def _load(name: str, seconds: float, cached: bool, log: str) -> ctypes.CDLL:
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = list(SIGNATURES[name])
     fn.restype = ctypes.c_int
+    for entry, argtypes in OTHER_ENTRY_POINTS.get(name, {}).items():
+        other = getattr(lib, entry)
+        other.argtypes = list(argtypes)
+        other.restype = ctypes.c_int
     err_str = getattr(lib, f"{name}_error_string")
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
@@ -157,6 +175,46 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         msg = getattr(_LOADED[name], f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def launch_counters(device) -> torch.Tensor:
+    """The launch counters of the card `device`: int64 [len(COUNTED)],
+    made at first use. A capture must not make them (they would live in
+    the graph's pool): models/compiled.py asks for them before it
+    captures."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    counters = _COUNTERS.get(index)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the launch counters must exist before a capture")
+        counters = torch.zeros(len(COUNTED), dtype=torch.int64,
+                               device=torch.device("cuda", index))
+        _COUNTERS[index] = counters
+    return counters
+
+
+def launch_counter(wrapper, device) -> int:
+    """The device address of `wrapper`'s launch counter on `device`, the
+    argument its kernel takes: thread 0 of block 0 adds one to it at each
+    launch (csrc/launch_count.cuh), from a CUDA graph replay too."""
+    name = wrapper.__name__
+    _WRAPPERS[name] = wrapper
+    return launch_counters(device).data_ptr() + 8 * COUNTED.index(name)
+
+
+def collect_launches() -> None:
+    """Add the launches the kernels counted on each card to their
+    wrappers' `launches`, and zero the cards' counters (waits for each
+    card)."""
+    for index, counters in _COUNTERS.items():
+        torch.cuda.synchronize(index)
+        counts = counters.tolist()
+        counters.zero_()
+        torch.cuda.synchronize(index)  # zeroed before any stream launches again
+        for name, n in zip(COUNTED, counts):
+            if n:
+                _WRAPPERS[name].launches += n
 
 
 def check_tensor(name, t, dtype, ndim) -> None:

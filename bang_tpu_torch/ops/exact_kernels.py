@@ -10,8 +10,9 @@ squared-L2 distances to the query, with no gathered copy of the rows.
 The wrapper checks device, dtype, shape and contiguity and raises on what
 the kernel does not take. For tensors on the CPU it returns the plain
 version (`exact_frontier_plain`); for CUDA tensors it launches the kernel or
-raises — there is no fallback. `exact_frontier.launches` counts launches
-(zeroed with the others by `pq_kernels.reset_launch_counts`).
+raises — there is no fallback. `exact_frontier.launches` counts launches,
+which the kernel counts on the card (read and zeroed with the others by
+`pq_kernels.launch_counts` and `reset_launch_counts`).
 
 The Mosaic limits of the JAX kernel (R = 64, D % 128 == 0, DMA-tiled rows)
 do not carry over: any R <= MAX_R, any beam <= 16, any D whose f32 query
@@ -93,10 +94,10 @@ def exact_frontier(queries_f32: torch.Tensor, rows: torch.Tensor,
         err = lib.exact_frontier_launch(
             queries_f32.data_ptr(), rows.data_ptr(), parents.data_ptr(),
             ids.data_ptr(), dists.data_ptr(), n, q, r, d, beam,
+            _build.launch_counter(exact_frontier, rows.device),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch("exact_frontier", err)
-    exact_frontier.launches += 1
     return ids, dists
 
 

@@ -90,12 +90,15 @@ def pq_distance_tables(codebook: PQCodebook, queries: torch.Tensor) -> torch.Ten
     """Per-query PQ distance tables: [Q, m, 256] f32, contiguous.
 
     queries: [Q, D] (cast to float32; already MIPS-transformed if
-    applicable). Full float32 (TF32 is off, see device.py)."""
+    applicable). Full float32 (TF32 is off, see device.py). The sums are
+    made in place in `cross`, so a batch holds one [Q, m, 256] temporary,
+    not three; each entry is (-2 cross + piv_norm) + q_norm, the same bits
+    as piv_norm - 2 cross + q_norm."""
     qc = (queries.float() - codebook.centroid)[:, codebook.dim_idx]
     qc = qc * codebook.dim_mask  # [Q, m, dmax], zero-padded
     cross = torch.einsum("qct,cjt->qcj", qc, codebook.piv_chunks)
     q_norms = (qc * qc).sum(-1)  # [Q, m]
-    tables = codebook.piv_norms[None] - 2.0 * cross + q_norms[:, :, None]
+    tables = cross.mul_(-2.0).add_(codebook.piv_norms[None]).add_(q_norms[:, :, None])
     return tables.contiguous()
 
 

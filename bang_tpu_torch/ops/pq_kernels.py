@@ -18,8 +18,11 @@ its kernel does not take (f32 tables included). For tensors on the CPU it
 returns its plain version (`lookup_packed_plain`, `frontier_lookup_plain`);
 for CUDA tensors it launches the kernel or raises — there is no fallback.
 `<wrapper>.launches` counts kernel launches, so a run can show that its main
-path went through the kernels; `reset_launch_counts` zeroes all of them: K3
-`exact_frontier` (ops/exact_kernels.py) and K5-K6 and `lookup_packed`
+path went through the kernels. Each kernel counts its own launches on the
+card (ops/_build.launch_counter), so the launches of a CUDA graph's replays,
+which run no Python, count as the eager ones do; `launch_counts` adds the
+cards' counts in and reads them all, `reset_launch_counts` zeroes them all:
+K3 `exact_frontier` (ops/exact_kernels.py) and K5-K6 and `lookup_packed`
 (ops/probe_kernels.py) included.
 
 Both kernels sum the m bf16 entries of a candidate in f32, in chunk order,
@@ -35,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from bang_tpu_torch.constants import INVALID_ID, MAX_R
+from bang_tpu_torch.ops import _build
 from bang_tpu_torch.ops._build import (
     MAX_SHARED_BYTES,
     check_aligned,
@@ -160,8 +164,6 @@ def frontier_lookup(packed: torch.Tensor, fused_rows: torch.Tensor,
         )
     if route(packed, fused_rows, parents) == "cpu":
         return frontier_lookup_plain(packed, fused_rows, parents)
-    from bang_tpu_torch.ops import _build
-
     ids = torch.empty((q, beam * r), dtype=torch.int32, device=packed.device)
     dists = torch.empty((q, beam * r), dtype=torch.float32, device=packed.device)
     if q == 0:
@@ -171,10 +173,10 @@ def frontier_lookup(packed: torch.Tensor, fused_rows: torch.Tensor,
         err = lib.frontier_lookup_launch(
             packed.data_ptr(), fused_rows.data_ptr(), parents.data_ptr(),
             ids.data_ptr(), dists.data_ptr(), n, q, r, m, beam,
+            _build.launch_counter(frontier_lookup, packed.device),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch("frontier_lookup", err)
-    frontier_lookup.launches += 1
     return ids, dists
 
 
@@ -186,7 +188,16 @@ KERNELS = (pq_lookup, frontier_lookup, exact_frontier, lookup_packed,
            frontier_packed, row_gather)
 
 
+def launch_counts() -> dict:
+    """{wrapper name: launches} for every kernel in KERNELS, the cards'
+    counters added in first (ops/_build.collect_launches)."""
+    _build.collect_launches()
+    return {k.__name__: k.launches for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
-    """Zero the launch counts of every kernel in KERNELS."""
+    """Zero the launch counts of every kernel in KERNELS, on the cards
+    too."""
+    _build.collect_launches()
     for k in KERNELS:
         k.launches = 0

@@ -30,8 +30,9 @@ kernels (sm_90a, under `csrc/`, built by `ops/_build.py`) serve all six:
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it returns its plain
 version; for CUDA tensors it launches the kernel or raises — there is no
-fallback. `<wrapper>.launches` counts launches (zeroed with the others by
-`pq_kernels.reset_launch_counts`). The search path calls none of these
+fallback. `<wrapper>.launches` counts launches, which each kernel counts on
+the card (read and zeroed with the others by `pq_kernels.launch_counts` and
+`reset_launch_counts`). The search path calls none of these
 wrappers; `bang_tpu_torch/scripts/` drives them at the probes' own sizes.
 """
 
@@ -80,8 +81,8 @@ def check_lookup(packed, codes) -> None:
 def run_lookup(wrapper, packed, codes) -> torch.Tensor:
     """K1 on (packed, codes) for `wrapper`, one of the two wrappers that
     compute its function (ops/pq_kernels.pq_lookup, `lookup_packed`): the
-    checks, the plain version for CPU tensors, else the kernel, counted on
-    `wrapper.launches` where it launches. Here, below both wrappers, because
+    checks, the plain version for CPU tensors, else the kernel, which
+    counts its launch in `wrapper`'s slot of the card's counter. Here, below both wrappers, because
     ops/pq_kernels imports this module."""
     check_lookup(packed, codes)
     if route(packed, codes) == "cpu":
@@ -96,10 +97,10 @@ def run_lookup(wrapper, packed, codes) -> torch.Tensor:
     with torch.cuda.device(packed.device):
         err = lib.pq_lookup_launch(
             packed.data_ptr(), codes.data_ptr(), out.data_ptr(), q, c, m,
+            _build.launch_counter(wrapper, packed.device),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch("pq_lookup", err)
-    wrapper.launches += 1
     return out
 
 
@@ -170,10 +171,11 @@ def frontier_packed(packed: torch.Tensor, rows: torch.Tensor, r: int,
         err = lib.frontier_packed_launch(
             packed.data_ptr(), rows.data_ptr(),
             ids.data_ptr() if id_planes else None, dists.data_ptr(),
-            q, r, m, beam, id_planes, torch.cuda.current_stream().cuda_stream,
+            q, r, m, beam, id_planes,
+            _build.launch_counter(frontier_packed, rows.device),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch("frontier_packed", err)
-    frontier_packed.launches += 1
     return ids, dists
 
 
@@ -212,10 +214,10 @@ def row_gather(rows: torch.Tensor, parents: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(rows.device):
         err = lib.row_gather_launch(
             rows.data_ptr(), parents.data_ptr(), out.data_ptr(), n, p, s,
+            _build.launch_counter(row_gather, rows.device),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch("row_gather", err)
-    row_gather.launches += 1
     return out
 
 

@@ -84,7 +84,11 @@ class ShardedBaseSearcher(BaseVariantSearcher):
     only the tables, the device step and the sampled entries differ. The
     searcher's device (its traversal state, the psum) is mesh.home. The
     [N, m] codes never go whole to one device: they stay in host RAM until
-    each shard's chunk slice is copied to its own device."""
+    each shard's chunk slice is copied to its own device. Its step stays
+    on the eager loop on the card (`captured` False): the shards' lookups
+    may sit on several devices, which one captured graph cannot span."""
+
+    captured = False
 
     def __init__(self, prefix: str, mesh: Mesh, **kwargs):
         if "device" in kwargs:

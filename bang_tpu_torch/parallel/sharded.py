@@ -23,10 +23,15 @@ two collectives are explicit:
   psum over 'model'        the shard-order sum of [Q, C] partials on one
                            device (parallel/pq_tp.py, parallel/base_tp.py).
 
-Every share's walk steps in rounds with the others (models/traversal.
-traverse_together): one host read of all their flags a round, so shares on
-distinct devices run at once. A mesh may name one device more than once
-([cuda:0] * 4, [cpu] * 8): the shares then take turns on it, a step each. That is how the tests drive these
+On CUDA devices each share's walk is its captured loop (models/compiled.py:
+one graph launch runs the whole search of a share), every walk is enqueued
+before any result is read, and the caller's readback is the one wait; the
+graphs live in the index's graph cache, and the first call of a key runs
+the rounds below, then captures each walk. On the CPU every share's walk
+steps in rounds with the others (models/traversal.traverse_together): one
+host read of all their flags a round, so shares on distinct devices run
+at once. A mesh may name one device more than once ([cuda:0] * 4, [cpu] *
+8): the shares then take turns on it. That is how the tests drive these
 paths (8 CPU positions, as the JAX tests use 8 virtual CPU devices) and how
 one card runs them. An index is placed once per distinct device. A
 multi-process NCCL backend, for meshes spread over hosts or processes, is
@@ -38,7 +43,9 @@ from __future__ import annotations
 import torch
 
 from bang_tpu_torch.device import assert_exact_float32, resolve_device
+from bang_tpu_torch.models import compiled
 from bang_tpu_torch.models.traversal import (
+    SearchStats,
     check_params,
     make_exact_distance_fn,
     make_pq_distance_fn,
@@ -64,6 +71,11 @@ class Mesh:
     @property
     def home(self) -> torch.device:
         return self.devices[0][0]
+
+    @property
+    def key(self) -> tuple:
+        """The grid as a hashable value (part of a graph-cache key)."""
+        return tuple(tuple(row) for row in self.devices)
 
 
 def _explicit(device) -> torch.device:
@@ -186,20 +198,22 @@ def _refuse_sampled(params: SearchParams, fn: str) -> None:
                          "searches only")
 
 
-def search_sharded(mesh: Mesh, sharded_index, queries, params: SearchParams):
+def search_sharded(mesh: Mesh, sharded_index, queries, params: SearchParams,
+                   stats: list | None = None):
     """Search a node-sharded index (parallel/partition.ShardedIndex) over
     the mesh.
 
     Queries are split over 'data', the shards over 'model'; each (row,
-    shard) search runs on its device. All of them step together in rounds
-    (traversal.traverse_together: one host read of every still-live
-    shard's flag per round, so shards on distinct devices run at once),
-    each taking exactly the iterations it would take alone. Then each
-    row's per-shard lists are gathered on the row's first device and
-    merged. Every shard's state is held at once (in bloom mode a
-    [q, 399,889] u8 filter each). Returns (ids [Q, k] int32 global ids,
-    dists [Q, k] f32) on mesh.home. entry_mode="sampled" raises
-    ValueError."""
+    shard) search runs on its device: on CUDA devices its captured loop,
+    all enqueued before any is read; on the CPU all step together in
+    rounds (traversal.traverse_together: one host read of every still-live
+    shard's flag per round), each taking exactly the iterations it would
+    take alone. Then each row's per-shard lists are gathered on the row's
+    first device and merged. Every shard's state is held at once (in bloom
+    mode a [q, 399,889] u8 filter each). Returns (ids [Q, k] int32 global
+    ids, dists [Q, k] f32) on mesh.home, with no host wait on the card;
+    each walk's SearchStats are appended to `stats` when given.
+    entry_mode="sampled" raises ValueError."""
     check_params(params)
     _refuse_sampled(params, "search_sharded")
     assert_exact_float32()
@@ -209,58 +223,95 @@ def search_sharded(mesh: Mesh, sharded_index, queries, params: SearchParams):
         raise ValueError(f"index has {si.n_shards} shards, mesh 'model' axis "
                          f"{n_model}")
     use_bloom = params.visited_mode == "bloom"
-    walks, ends = [], []
+    walks = []
     for row, qs in zip(mesh.devices, _query_rows(mesh, queries)):
         for s, dev in enumerate(row):
             sh = si.shard(s, dev)
-            step, state, queries_f32 = _local_start(
-                sh.adj, sh.vectors, sh.codes, sh.fused_rows, sh.codebook, sh.medoid,
-                qs.to(dev), l=params.L, max_iters=params.max_iters,
-                use_bloom=use_bloom, beam=params.beam_width)
-            walks.append((step, state))
-            ends.append((sh, queries_f32))
-    finals = traverse_together(walks, params.max_iters, mesh.home)
+            walks.append((dev, qs.to(dev), _shard_start(sh, params, use_bloom),
+                          _shard_finish(sh, params)))
+    done = _walk_all(si, ("sharded", mesh.key, qs.shape, params), walks,
+                     params.max_iters, mesh.home, stats)
     out_ids, out_dists = [], []
     for r, row in enumerate(mesh.devices):
-        ids, dists = [], []
-        for s in range(n_model):
-            sh, queries_f32 = ends[r * n_model + s]
-            i, d = _local_finish(sh.vectors, sh.id_base, queries_f32,
-                                 finals[r * n_model + s], k=params.k,
-                                 rerank=params.rerank, exact=sh.codes is None)
-            ids.append(i)
-            dists.append(d)
-        i, d = merge_topk(all_gather(ids, row[0]), all_gather(dists, row[0]),
-                          params.k)
+        parts = [done[r * n_model + s][0] for s in range(n_model)]
+        i, d = merge_topk(all_gather([p[0] for p in parts], row[0]),
+                          all_gather([p[1] for p in parts], row[0]), params.k)
         out_ids.append(i.to(mesh.home))
         out_dists.append(d.to(mesh.home))
     return torch.cat(out_ids), torch.cat(out_dists)
 
 
-def search_data_parallel(mesh: Mesh, index, queries, params: SearchParams):
+def _shard_start(sh, params: SearchParams, use_bloom: bool):
+    def start(queries):
+        return _local_start(sh.adj, sh.vectors, sh.codes, sh.fused_rows, sh.codebook,
+                            sh.medoid, queries, l=params.L, max_iters=params.max_iters,
+                            use_bloom=use_bloom, beam=params.beam_width)
+    return start
+
+
+def _shard_finish(sh, params: SearchParams):
+    def finish(queries_f32, final):
+        return _local_finish(sh.vectors, sh.id_base, queries_f32, final, k=params.k,
+                             rerank=params.rerank, exact=sh.codes is None)
+    return finish
+
+
+def _walk_all(owner, key, walks, max_iters: int, home, stats=None) -> list:
+    """Run independent walks, each `(device, queries, start, finish)` (the
+    prologue and epilogue of models/compiled.CapturedLoop); returns
+    [(finish's tensors, SearchStats)] in the walks' order, appending the
+    stats to `stats` when given.
+
+    On CUDA devices: each walk's captured loop from `owner`'s graph cache,
+    all enqueued with no host wait. Otherwise, and at a key's first call on
+    the card (then each walk is captured after): the rounds of
+    traversal.traverse_together."""
+    cuda = all(dev.type == "cuda" for dev, *_ in walks)
+    cache = compiled.graph_cache(owner) if cuda else None
+    loops = [cache.get(key, i) for i in range(len(walks))] if cuda else []
+    if cuda and all(loop is not None for loop in loops):
+        done = [loop.launch(q) for loop, (_, q, _, _) in zip(loops, walks)]
+    else:
+        queries = [compiled.device_queries(q, torch.empty(0, device=dev))
+                   for dev, q, _, _ in walks]
+        started = [start(q) for q, (_, _, start, _) in zip(queries, walks)]
+        finals = traverse_together([(step, state) for step, state, _ in started],
+                                   max_iters, home)
+        done = [(finish(ctx, f), SearchStats(f.it, f.n_expanded, f.n_dist_comps))
+                for (_, _, ctx), f, (_, _, _, finish) in zip(started, finals, walks)]
+        if cuda:
+            for i, (q, (_, _, start, finish)) in enumerate(zip(queries, walks)):
+                cache.put(i, compiled.CapturedLoop(start, finish, q, max_iters))
+    if stats is not None:
+        stats.extend(st for _, st in done)
+    return done
+
+
+def search_data_parallel(mesh: Mesh, index, queries, params: SearchParams,
+                         stats: list | None = None):
     """Query-data-parallel search of a replicated in-memory index
     (models/index.DeviceIndex): each data row searches its query slice with
     models/inmemory's search on a replica of the index on its first device
     (one replica per distinct device; the JAX program also repeats the
     search along 'model', which gives the same answers). The rows step
-    together in rounds, as search_sharded's shards do. Returns (ids [Q, k]
-    int32, dists [Q, k] f32) on mesh.home. entry_mode="sampled" raises
-    ValueError."""
+    together in rounds on the CPU and run their captured loops on the card,
+    as search_sharded's shards do. Returns (ids [Q, k] int32, dists [Q, k]
+    f32) on mesh.home; each row's SearchStats are appended to `stats` when
+    given. entry_mode="sampled" raises ValueError."""
     from bang_tpu_torch.models.inmemory import finish_inmemory, prepare_inmemory
 
     _refuse_sampled(params, "search_data_parallel")
-    replicas, walks, ends = {}, [], []
+    replicas, walks = {}, []
     for row, qs in zip(mesh.devices, _query_rows(mesh, queries)):
         dev = row[0]
         if dev not in replicas:
             replicas[dev] = index.to(dev)
-        step, state, queries_f32 = prepare_inmemory(replicas[dev], qs.to(dev), params)
-        walks.append((step, state))
-        ends.append((replicas[dev], queries_f32))
-    finals = traverse_together(walks, params.max_iters, mesh.home)
-    out_ids, out_dists = [], []
-    for (replica, queries_f32), final in zip(ends, finals):
-        ids, dists, _stats = finish_inmemory(replica, queries_f32, final, params)
-        out_ids.append(ids.to(mesh.home))
-        out_dists.append(dists.to(mesh.home))
-    return torch.cat(out_ids), torch.cat(out_dists)
+        replica = replicas[dev]
+        walks.append((dev, qs.to(dev),
+                      lambda q, replica=replica: prepare_inmemory(replica, q, params),
+                      lambda queries_f32, final, replica=replica: finish_inmemory(
+                          replica, queries_f32, final, params)[:2]))
+    done = _walk_all(index, ("data_parallel", mesh.key, qs.shape, params), walks,
+                     params.max_iters, mesh.home, stats)
+    return (torch.cat([ids.to(mesh.home) for (ids, _), _ in done]),
+            torch.cat([dists.to(mesh.home) for (_, dists), _ in done]))

@@ -27,14 +27,16 @@ counterpart; its `merge_worklist_ranked` is not ported (ROADMAP Queue 1).
 Its times are a TPU v5e's, not the card's.
 
 Also here: `profile_base`, one BANGSearch("base") call under
-torch.profiler with each step stage in a range (chip_smoke.py phase 10 and
-its --scale run).
+torch.profiler, on the eager step with each step stage in a range, or on
+the captured step (its busy share; a replay has no ranges) (chip_smoke.py
+phase 10 and its --scale run).
 
     python -m bang_tpu_torch.scripts.profile_base_step   # on the card
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -126,15 +128,18 @@ def main(device="cuda", q=Q, beam=BEAM, r=R, m=M, d=D, n=N, extra=EXTRA,
     return res
 
 
-def profile_base(prefix, dev, L, beam=2, extra=16, n_pipeline=8, k=10):
+def profile_base(prefix, dev, L, beam=2, extra=16, n_pipeline=8, k=10,
+                 captured=False):
     """BANGSearch("base") at L, the graph read into RAM, `n_pipeline`
     sub-batches, ENABLE_GPU_STATS on: three timed calls, then one under
-    torch.profiler with each step stage (PROFILE_STAGES, models/base) and
-    the code gather of the PQ lookup in profiler ranges. Prints kernel ms
-    by name and by range, the stage timers of the profiled call, the card's
-    busy share (the union of kernel intervals over the wall), K1's ms a
-    launch against its bound at a sub-batch's shape, and the call's peak
-    memory; returns them."""
+    torch.profiler. captured=False: the eager step (models/base's
+    `captured` off), with each step stage (PROFILE_STAGES, models/base)
+    and the code gather of the PQ lookup in profiler ranges; True: the
+    captured step, whose replays have no ranges. Prints kernel ms by name
+    (and by range), the stage timers of the profiled call, the card's busy
+    share (the union of kernel intervals over the wall), K1's ms a launch
+    against its bound at a sub-batch's shape, and the call's peak memory;
+    returns them."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from bang_tpu_torch.api import BANGSearch
@@ -147,6 +152,7 @@ def profile_base(prefix, dev, L, beam=2, extra=16, n_pipeline=8, k=10):
     s = BANGSearch("base", device=dev)
     s.bang_load(prefix, mmap=False, n_pipeline_batches=n_pipeline)
     searcher = s._searcher
+    searcher.captured = captured
 
     class RangedCodes:
         """The codes, their row gather (`codes[cand]` in the distance
@@ -162,10 +168,12 @@ def profile_base(prefix, dev, L, beam=2, extra=16, n_pipeline=8, k=10):
     s.bang_set_searchparams(k, L, beam_width=beam, extra_iters=extra,
                             capabilities=ENABLE_GPU_STATS)
     s.bang_alloc(len(queries))
-    label = f"profile base L={L}"
-    names = PROFILE_STAGES + ("code_gather",)
-    with traversal_stages(visited.exact_new_mask, base):
-        searcher._prepare_tables = ranged_tables
+    label = f"profile base L={L} {'captured' if captured else 'eager'}"
+    names = () if captured else PROFILE_STAGES + ("code_gather",)
+    with (contextlib.nullcontext() if captured
+          else traversal_stages(visited.exact_new_mask, base)):
+        if not captured:
+            searcher._prepare_tables = ranged_tables
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -190,10 +198,11 @@ def profile_base(prefix, dev, L, beam=2, extra=16, n_pipeline=8, k=10):
     c, m = beam * searcher.meta.degree, searcher.codebook.num_chunks
     k1_ms, k1_n = next((ms, n) for ms, n, key in kernels if "pq_lookup_kernel" in key)
     bound = (q_b * m * 512 + q_b * c * m + q_b * c * 4) / HBM_BYTES_PER_S * 1e3
-    gather_ms, gather_n = stages["code_gather"]
+    gather_ms, gather_n = stages.get("code_gather", (None, None))
     log(f"{label}: K1 {k1_ms / k1_n:.4f} ms a launch at Q={q_b} C={c} m={m} (bound "
-        f"{bound:.4f} ms, {bound / (k1_ms / k1_n):.0%} of it); the code gather "
-        f"{gather_ms / gather_n:.4f} ms a step")
+        f"{bound:.4f} ms, {bound / (k1_ms / k1_n):.0%} of it)"
+        + ("" if gather_n is None else
+           f"; the code gather {gather_ms / gather_n:.4f} ms a step"))
     log(f"{label}: kernels {total:.3f} ms summed over the streams, busy "
         f"{busy:.3f} ms of a {wall * 1e3:.3f} ms wall ({busy / (wall * 1e3):.1%}); "
         f"peak {peak / 1e9:.2f} GB")
@@ -203,7 +212,7 @@ def profile_base(prefix, dev, L, beam=2, extra=16, n_pipeline=8, k=10):
             "steps": searcher.last_n_steps, "stage_ms": dict(searcher.timers.ms),
             "kernel_ms": total, "busy_ms": busy, "busy_share": busy / (wall * 1e3),
             "k1_ms": k1_ms / k1_n, "k1_bound_ms": bound,
-            "code_gather_ms": gather_ms / gather_n, "peak_gb": peak / 1e9}
+            "code_gather_ms": gather_n and gather_ms / gather_n, "peak_gb": peak / 1e9}
 
 
 if __name__ == "__main__":

@@ -3,8 +3,10 @@ scripts/run_eval.py, with its flags): sweep one bundle with one variant
 over an L grid and write a JSON artifact.
 
 base (bench.py::sweep_base's measurement): one BaseVariantSearcher, stage
-timers on; per L a warm-up call on 256 queries, then one timed call on all
-of them: tie-expanded recall@10, wall QPS, device steps, readback waits,
+timers on; per L a warm-up call at the timed shape (on the card the first
+call of a shape runs the eager step, then captures each sub-batch's
+graphs; the JAX runner warmed up on 256 queries), then one timed call on
+all of them: tie-expanded recall@10, wall QPS, device steps, readback waits,
 the stage ms (host_gather, d2h_parents, dispatch, wall). The row is the
 first L that reaches 90 recall@10 (else the last); every L of the grid is
 measured and listed under "points" (the port's bench, bang_tpu_torch/
@@ -110,7 +112,7 @@ def sweep_base(prefix, queries, gt_ids, gt_dists, grid=(30, 45, 60, 90), beam=2,
     for L in grid:
         params = params_at(L)
         t1 = time.perf_counter()
-        searcher.search(queries[:256], params)  # warm-up
+        searcher.search(queries, params)  # warm-up: capture at this shape
         warm_s = time.perf_counter() - t1
         t1 = time.perf_counter()
         ids, _dists = searcher.search(queries, params)
@@ -137,7 +139,7 @@ def sweep_base(prefix, queries, gt_ids, gt_dists, grid=(30, 45, 60, 90), beam=2,
     params = params_at(row["L"])
     if searcher.meta.n <= A_B_MAX_N:
         serial = BaseVariantSearcher(prefix, n_pipeline_batches=1, mmap=mmap, device=dev)
-        serial.search(queries[:256], params)
+        serial.search(queries, params)
         t1 = time.perf_counter()
         serial.search(queries, params)
         row["wall_serial_s"] = time.perf_counter() - t1

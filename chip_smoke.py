@@ -7,9 +7,11 @@
 Phases, each printing progress; any failure raises and exits non-zero:
   1. device   — require CUDA; print the card's name and power limit
                 (nvidia-smi), torch, CUDA and nvcc versions.
-  2. build    — build the five kernel sources of bang_tpu_torch/csrc (six
-                wrappers: lookup_packed launches K1's), one nvcc per source,
-                all started together.
+  2. build    — build the six sources of bang_tpu_torch/csrc: the five
+                kernel sources (six wrappers: lookup_packed launches K1's)
+                and graph_loop.cu (the captured search's WHILE node,
+                models/compiled.py), one nvcc per source, all started
+                together.
   3. kernels  — K1 pq_lookup, K2 frontier_lookup and K3 exact_frontier
                 against their plain PyTorch versions on the card at the main
                 paths' shapes and others: ids bit-exact; K1 and K2 (both on
@@ -56,10 +58,15 @@ Phases, each printing progress; any failure raises and exits non-zero:
   5. search   — BANGSearch("inmemory") on the fused-row layout (K2), L in
                 {32, 64, 128, 256, 512}, beam 2, extra_iters 11: recall@10,
                 iterations, wall time and QPS; recall@10 >= 90 at the best L.
+                Phases 5-17 search through the captured loop, as a user's
+                calls do (bang_alloc runs the eager loop once, then
+                captures; each kernel counts its launches on the card, so
+                a graph replay's launches count as the eager loop's do).
                 Then one call at L=128 under torch.profiler, after three
-                timed ones, with the sorted visited mask and again with its
-                dense form: kernel device ms by name and by traversal stage,
-                busy share, peak memory.
+                timed ones: kernel device ms by name, busy share,
+                peak memory; and the eager loop (a replay cannot be split
+                into stages) profiled with the sorted visited mask and again
+                with its dense form: kernel device ms by traversal stage.
   6. scattered — the same bundle on the scattered-codes layout (K1 over the
                 packed tables) at the best L: ids and iterations identical
                 to phase 5's (K1 and K2 sum the same entries in the same
@@ -88,7 +95,25 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 sub-batch's parents, and one call under torch.profiler
                 (kernel ms by name and by step stage, the code gather's ms,
                 the card's busy share over the union of kernel intervals on
-                all streams, peak memory).
+                all streams, peak memory), on the eager step, then the
+                captured step's busy share.
+ 18. captured — the captured loop (models/compiled.py: one CUDA graph a
+                search, its traversal a WHILE node; base: one graph replay a
+                sub-batch's step) against the eager loop, its plain version,
+                on the bundle: in-memory fused L=128 (exact and bloom mode,
+                medoid and sampled entry) and scattered L=512, exact fused
+                L=10 (medoid, sampled) and L=100, the serving batch of 128
+                (in-memory L=64, exact L=30), base L=90 with 8
+                sub-batches and with 1; calls in the order eager, captured,
+                captured, eager after each key's capture: ids, distances,
+                iterations, distance computations and K1/K2/K3 launches (as
+                the kernels count them on the card) identical (base: steps
+                and readback waits too), the path's kernel once a step;
+                walls, blocking host waits a call, peak GB allocated, peak
+                GB reserved from an emptied cache (captured with its pool,
+                eager with the graphs dropped), graph pool GB by part,
+                capture s, and one profiled call of each (kernel ms, busy
+                share). Runs after phase 10.
  11. bloom    — visited_mode="bloom" (ops/bloom.py, plain PyTorch) on each
                 search of the bundle: in-memory fused L in {64, 128, 256}
                 (K2), in-memory scattered L=512 (K1), exact fused L in {30,
@@ -134,11 +159,15 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 >= 98% of slots, recall@10 >= 90, K1 launched 4 times a step
                 (and 4 times per sub-batch's sampled entries); then
                 entry.dryrun_multichip(4). Walls, iterations and peak memory.
-                At each fused L, search_sharded (its shards stepped together
-                in rounds, one host read a round) beside the per-shard loop
-                (each shard searched to its end in turn), in the order
-                rounds, loop, loop, rounds: ids and every shard's iterations
-                identical, both walls.
+                At each fused L, search_sharded's first call (its shards
+                stepped together in rounds on the eager loop, then each
+                shard's walk captured) beside its captured calls (one graph
+                launch a shard, one wait) and the per-shard loop (each shard
+                searched to its end in turn), in the order captured, loop,
+                loop, captured: ids and every shard's iterations identical,
+                the captured calls' distance computations and launches
+                identical to the rounds', the walls; data parallel's rounds
+                and captured call against search_inmemory.
  15. sharded build — formats/bigbuild.py: BlockGen at N=1M x 128 u8 on the
                 card, build_sharded_vamana (4 shards, overlap 2, R=64, l_build
                 48, batch 4096, one pass; no kernel), k-means and the
@@ -216,6 +245,21 @@ RECALL_TARGET = 90.0
 # read into RAM as in the reference's configuration
 BASE_L_SWEEP = (30, 45, 60, 90)
 BASE_BEAM, BASE_EXTRA, BASE_PIPELINE = 2, 16, 8
+# phase 18: the captured loop against the eager loop at these points:
+# (label, variant, L, fused_frontier, entry_mode, visited_mode, queries)
+CAPTURED_POINTS = (
+    ("inmemory fused", "inmemory", PROFILE_L, None, "medoid", "exact", Q),
+    ("inmemory scattered", "inmemory", SCATTERED_PROFILE_L, False, "medoid", "exact", Q),
+    ("exact fused", "exactdistance", 10, None, "medoid", "exact", Q),
+    ("exact fused", "exactdistance", EXACT_PROFILE_L, None, "medoid", "exact", Q),
+    ("inmemory fused bloom", "inmemory", PROFILE_L, None, "medoid", "bloom", Q),
+    ("inmemory fused sampled", "inmemory", PROFILE_L, None, "sampled", "exact", Q),
+    ("exact fused sampled", "exactdistance", 10, None, "sampled", "exact", Q),
+    # the serving batch at phase 12's Ls
+    ("inmemory fused batch 128", "inmemory", 64, None, "medoid", "exact", 128),
+    ("exact fused batch 128", "exactdistance", 30, None, "medoid", "exact", 128),
+)
+CAPTURED_BASE = ((90, BASE_PIPELINE), (90, 1))  # (L, sub-batches)
 # phase 11: the Ls searched in bloom mode, and the JAX package's bar for the
 # recall bloom may lose against the exact mask at the same L
 BLOOM_L = {"inmemory": (64, 128, 256), "exactdistance": (30, 60, 100)}
@@ -370,8 +414,9 @@ def phase_build():
     from bang_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    # the kernels' sources and the captured search's WHILE node (graph_loop)
     libraries = sorted({os.path.basename(src)[: -len(".cu")]
-                        for src, _, _ in KERNEL_SOURCES.values()})
+                        for src, _, _ in KERNEL_SOURCES.values()} | {"graph_loop"})
     _build.build_libraries(libraries)
     for name in libraries:
         info = _build.BUILD_INFO[name]
@@ -585,7 +630,8 @@ def _k1_empty(packed, codes):
     from bang_tpu_torch.ops import pq_kernels as pk
     from bang_tpu_torch.ops import probe_kernels as prk
 
-    before = (pk.pq_lookup.launches, prk.lookup_packed.launches)
+    counts = pk.launch_counts()
+    before = (counts["pq_lookup"], counts["lookup_packed"])
     for wrapper in (pk.pq_lookup, prk.lookup_packed):
         for p, c in ((packed, codes[:, :0]), (packed[:0], codes[:0])):
             out = wrapper(p, c.contiguous())
@@ -593,7 +639,8 @@ def _k1_empty(packed, codes):
                 raise AssertionError(
                     f"{wrapper.__name__} on codes {tuple(c.shape)}: "
                     f"result {tuple(out.shape)}")
-    after = (pk.pq_lookup.launches, prk.lookup_packed.launches)
+    counts = pk.launch_counts()
+    after = (counts["pq_lookup"], counts["lookup_packed"])
     if after != before:
         raise AssertionError(f"K1 on empty batches counted launches: {before} -> {after}")
     log("kernels K1 on empty batches (C=0, Q=0): empty results, no launch counted")
@@ -876,18 +923,19 @@ def run_search(prefix, dev, variant, l_values, fused_frontier=None,
 def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
                    visited_mode="exact"):
     """BANGSearch(variant) at L on the layout `fused_frontier` picks (the
-    fused one by default), with the sorted visited mask and, when `dense`,
-    again with its dense form (the JAX expression), or with the bloom
-    filter: each three timed calls, then one under torch.profiler. Prints
-    the device ms of each kernel name and of each traversal stage
-    (exp_iter_profile.PROFILE_STAGES) summed over the call, the kernels'
-    total against the profiled call's wall (the device's busy share) and
-    the peak memory of that call; in bloom mode also the filter's ms a step
-    (hash, query and insert)."""
+    fused one by default): three timed calls of the captured loop, then one
+    under torch.profiler (kernel device ms by name, the device's busy share
+    over the call's wall, peak memory). Then the eager loop (its plain
+    version) under torch.profiler with the sorted visited mask and, when
+    `dense`, again with its dense form (the JAX expression), or with the
+    bloom filter: the device ms of each traversal stage
+    (exp_iter_profile.PROFILE_STAGES), which a graph replay cannot split;
+    in bloom mode also the filter's ms a step (hash, query and insert)."""
     from torch.profiler import ProfilerActivity, profile
 
     from bang_tpu_torch.api import BANGSearch
     from bang_tpu_torch.formats.bin_io import load_bin
+    from bang_tpu_torch.models import compiled, exactdistance, inmemory
     from bang_tpu_torch.ops import visited
     from bang_tpu_torch.scripts import exp_iter_profile as eip
 
@@ -901,6 +949,29 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
     s.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra,
                             visited_mode=visited_mode)
     s.bang_alloc(len(queries))
+    label = f"profile {variant} {layout} L={L} {visited_mode}"
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.bang_query(queries)
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.bang_query(queries)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label} captured: {s.last_stats.iters} iterations; walls of 3 timed calls "
+        + " / ".join(f"{w:.4f}" for w in walls) + f" s; profiled call {wall:.4f} s")
+    total, _, _ = eip.read_profile(prof, label + " captured", ())
+    log(f"{label} captured: kernels {total:.3f} ms in a {wall * 1e3:.3f} ms wall, busy "
+        f"{total / (wall * 1e3):.1%}; peak {peak / 1e9:.2f} GB")
+
+    eager = (inmemory.search_inmemory_eager if variant == "inmemory"
+             else exactdistance.search_exact_eager)
+    q = torch.as_tensor(queries)
     if visited_mode == "bloom":  # the mask is not called
         masks = [("bloom filter", visited.exact_new_mask)]
     else:
@@ -908,23 +979,16 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
         if dense:
             masks.append(("dense mask", visited.exact_new_mask_dense))
     for mask_name, mask in masks:
-        label = f"profile {variant} {layout} L={L} {mask_name}"
+        label = f"profile {variant} {layout} L={L} eager {mask_name}"
         with eip.traversal_stages(mask):
-            walls = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                s.bang_query(queries)
-                walls.append(time.perf_counter() - t0)
+            compiled.readback(*eager(ix, q, s._params)[:2])  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                s.bang_query(queries)
+                compiled.readback(*eager(ix, q, s._params)[:2])
                 wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        log(f"{label}: {s.last_stats.iters} iterations; walls of 3 timed calls "
-            + " / ".join(f"{w:.4f}" for w in walls) + f" s; profiled call {wall:.4f} s")
         total, stages, _ = eip.read_profile(prof, label, eip.PROFILE_STAGES)
         log(f"{label}: kernels {total:.3f} ms in a {wall * 1e3:.3f} ms wall, busy "
             f"{total / (wall * 1e3):.1%}; peak {peak / 1e9:.2f} GB")
@@ -1000,8 +1064,9 @@ def _k1_per_step(label, steps):
     """K1 launched once per device step of the phase just counted."""
     from bang_tpu_torch.ops import pq_kernels as pk
 
-    if pk.pq_lookup.launches != steps:
-        raise AssertionError(f"{label}: K1 launched {pk.pq_lookup.launches} times "
+    k1 = pk.launch_counts()["pq_lookup"]
+    if k1 != steps:
+        raise AssertionError(f"{label}: K1 launched {k1} times "
                              f"for {steps} device steps")
     log(f"{label}: K1 launches {steps} = device steps dispatched")
 
@@ -1078,8 +1143,293 @@ def phase_base(prefix, dev, totals):
     in_loop = best["stages"]["host_gather"] / best["steps"]
     log(f"host gather per step: {pure:.4f} ms alone, {in_loop:.4f} ms in the loop "
         f"(L={best['L']})")
-    profile_base(prefix, dev, best["L"], BASE_BEAM, BASE_EXTRA, BASE_PIPELINE, K)
+    for captured in (False, True):
+        profile_base(prefix, dev, best["L"], BASE_BEAM, BASE_EXTRA, BASE_PIPELINE, K,
+                     captured=captured)
     return best, rows
+
+
+@contextlib.contextmanager
+def _host_waits():
+    """Count the host's blocking waits on the card while on: reads of a
+    CUDA tensor (bool, item, tolist, cpu) and synchronize calls (device,
+    stream, event). Yields a one-item list holding the count."""
+    count, saved = [0], []
+
+    def wrap(owner, name, cuda_tensor):
+        orig = getattr(owner, name)
+
+        def counted(*args, **kwargs):
+            if not cuda_tensor or args[0].is_cuda:
+                count[0] += 1
+            return orig(*args, **kwargs)
+
+        saved.append((owner, name, orig))
+        setattr(owner, name, counted)
+
+    for name in ("__bool__", "item", "tolist", "cpu"):
+        wrap(torch.Tensor, name, True)
+    for owner in (torch.cuda.Event, torch.cuda.Stream):
+        wrap(owner, "synchronize", False)
+    wrap(torch.cuda, "synchronize", False)
+    try:
+        yield count
+    finally:
+        for owner, name, orig in saved:
+            setattr(owner, name, orig)
+
+
+def _launches():
+    from bang_tpu_torch.ops import pq_kernels as pk
+
+    return pk.launch_counts()
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+
+
+_PROFILER_STARTED = []
+
+
+def _start_profiler(dev):
+    """Open and close one torch.profiler session on `dev` before the first
+    CUDA graph is captured: a graph captured before the process's first
+    session lists almost none of its kernels in later traces (7.0 of ~97 ms
+    at fused L=128, even after a discarded session; graphs captured after
+    the first session list them all; measured on one H100)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not _PROFILER_STARTED:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize(dev)
+        _PROFILER_STARTED.append(True)
+
+
+def _profiled_busy(fn):
+    """(kernel ms, busy ms: the union of kernel intervals, wall ms) of one
+    synchronised call of fn under torch.profiler; busy None when the trace
+    holds no kernel (kernels launched from a graph may not be listed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bang_tpu_torch.scripts import exp_iter_profile as eip
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    try:
+        busy = eip.busy_ms(prof, ())
+    except AssertionError:
+        busy = None
+    return total, busy, wall
+
+
+def _busy_text(prof):
+    total, busy, wall = prof
+    share = "not measured (no kernel in the trace)" if busy is None else f"{busy / wall:.1%}"
+    return f"kernels {total:.3f} ms, busy {share} of a {wall:.3f} ms wall"
+
+
+def _hbm_call(fn, index, queries, params):
+    """One search call through fn and the readback: ids, distances, the
+    counters, the kernels it launched (counted by the kernels on the card),
+    wall, blocking waits, peak GB allocated and reserved."""
+    from bang_tpu_torch.models import compiled
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _launches()
+    with _host_waits() as waits:
+        t0 = time.perf_counter()
+        ids, dists, stats = fn(index, queries, params)
+        ids, dists, values = compiled.readback(ids, dists, stats.device_values())
+        wall = time.perf_counter() - t0
+    stats.sync(values.tolist())
+    return {"ids": ids.numpy().copy(), "dists": dists.numpy().copy(),
+            "iters": stats.iters, "dist_comps": stats.n_dist_comps,
+            "launches": _delta(before), "wall_s": wall, "waits": waits[0],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _peak_reserved_gb(fn):
+    """GB the allocator held at most during one synchronised call of fn,
+    started from an emptied cache: the memory a call needs beside what
+    stays allocated (a captured loop's pool stays reserved throughout)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_reserved() / 1e9
+
+
+def _same_run(label, a, b, keys):
+    for key in keys:
+        same = (np.array_equal(a[key], b[key]) if isinstance(a[key], np.ndarray)
+                else a[key] == b[key])
+        if not same:
+            raise AssertionError(f"captured {label}: {key} differ between the eager "
+                                 f"and the captured loop: {a[key] if key != 'ids' else ''}"
+                                 f" vs {b[key] if key != 'ids' else ''}")
+
+
+def _captured_point(index, variant, L, entry_mode, visited_mode, queries, label):
+    """One search point: the key's first call (the eager loop, then the
+    capture), then eager, captured, captured, eager calls (ids, distances,
+    iterations, distance computations and kernel launches identical; the
+    path's kernel once a step), then one profiled call of each."""
+    from bang_tpu_torch.models import compiled, exactdistance, inmemory
+    from bang_tpu_torch.utils.config import SearchParams
+
+    fns = {"inmemory": (inmemory.search_inmemory_eager, inmemory.search_inmemory),
+           "exactdistance": (exactdistance.search_exact_eager,
+                             exactdistance.search_exact)}[variant]
+    beam, extra = BEAM_EXTRA[variant]
+    params = SearchParams(L=L, k=K, beam_width=beam, extra_iters=extra,
+                          entry_mode=entry_mode, visited_mode=visited_mode)
+    q = torch.as_tensor(queries)
+    t0 = time.perf_counter()
+    compiled.readback(fns[1](index, q, params)[0])
+    first = time.perf_counter() - t0
+    loop = compiled.graph_cache(index).loops[0]
+    runs = {"eager": [], "captured": []}
+    for kind in ("eager", "captured", "captured", "eager"):
+        runs[kind].append(_hbm_call(fns[kind == "captured"], index, q, params))
+    e, c = runs["eager"][0], runs["captured"][0]
+    keys = ("ids", "dists", "iters", "dist_comps", "launches")
+    _same_run(f"{label} L={L}", e, c, keys)
+    _same_run(f"{label} L={L} (second calls)", runs["eager"][1], runs["captured"][1],
+              keys)
+    kernel = {"inmemory": "frontier_lookup", "exactdistance": "exact_frontier"}[variant]
+    if index.fused_rows is None and variant == "inmemory":
+        kernel = "pq_lookup"
+    if c["launches"] != {kernel: c["iters"] - 1}:
+        raise AssertionError(f"captured {label} L={L}: launches {c['launches']}, "
+                             f"expected {kernel} once in each of {c['iters'] - 1} steps")
+    calls = {kind: lambda fn=fns[kind == "captured"]: compiled.readback(
+        *fn(index, q, params)[:2]) for kind in ("eager", "captured")}
+    # peak reserved: captured with its pool; eager with the graphs dropped,
+    # as a process that never captures; then the capture again
+    reserved = {"captured": _peak_reserved_gb(calls["captured"])}
+    compiled.drop_graphs(index)
+    reserved["eager"] = _peak_reserved_gb(calls["eager"])
+    calls["captured"]()
+    prof = {kind: _profiled_busy(call) for kind, call in calls.items()}
+    walls = {k: " / ".join(f"{r['wall_s']:.4f}" for r in v) for k, v in runs.items()}
+    log(f"captured {label} L={L} Q={q.shape[0]}: ids, distances, iterations "
+        f"({c['iters']}), distance "
+        f"computations ({c['dist_comps']}) and launches {c['launches']} identical to "
+        f"the eager loop's; walls eager {walls['eager']} s, captured {walls['captured']}"
+        f" s; host waits a call eager {e['waits']}, captured {c['waits']}; peak GB "
+        f"allocated eager {e['peak_gb']:.2f}, captured {c['peak_gb']:.2f} (the pool's "
+        f"live tensors included); peak GB reserved eager {reserved['eager']:.2f}, "
+        f"captured {reserved['captured']:.2f}; graph pool {loop.graph_bytes / 1e9:.2f}"
+        f" GB (" + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in loop.part_bytes.items())
+        + f"); capture {loop.capture_s:.3f} s (first call, "
+        f"eager loop + capture: {first:.3f} s); eager {_busy_text(prof['eager'])}; "
+        f"captured {_busy_text(prof['captured'])}")
+    return {"label": label, "L": L, "iters": c["iters"], "walls": runs, "prof": prof,
+            "capture_s": loop.capture_s, "graph_gb": loop.graph_bytes / 1e9,
+            "part_gb": {k: v / 1e9 for k, v in loop.part_bytes.items()},
+            "reserved_gb": reserved}
+
+
+def _base_call(searcher, queries, params):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _launches()
+    with _host_waits() as waits:
+        t0 = time.perf_counter()
+        ids, dists = searcher.search(queries, params)
+        wall = time.perf_counter() - t0
+    return {"ids": ids, "dists": dists, "steps": searcher.last_n_steps,
+            "d2h": searcher.last_n_d2h, "launches": _delta(before), "wall_s": wall,
+            "waits": waits[0], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _captured_base(prefix, dev, L, n_pipe, queries):
+    """Base at L with n_pipe sub-batches, the graph in RAM: one searcher on
+    the eager step, one capturing its sub-batches (its first call runs the
+    eager step, then captures); calls in the order eager, captured,
+    captured, eager: ids, distances, steps, readback waits and K1 launches
+    (one a step) identical; one profiled call of each."""
+    from bang_tpu_torch.models.base import BaseVariantSearcher
+    from bang_tpu_torch.utils.config import SearchParams
+
+    params = SearchParams(L=L, k=K, beam_width=BASE_BEAM, extra_iters=BASE_EXTRA)
+    searchers = {"eager": BaseVariantSearcher(prefix, n_pipe, mmap=False, device=dev),
+                 "captured": BaseVariantSearcher(prefix, n_pipe, mmap=False, device=dev)}
+    searchers["eager"].captured = False
+    t0 = time.perf_counter()
+    for s in searchers.values():
+        s.search(queries, params)
+    first = time.perf_counter() - t0
+    subs = searchers["captured"]._subs
+    captures = (" / ".join(f"{sb.capture_s:.3f}" for sb in subs) + " s, graph pools "
+                f"{sum(sb.graph_bytes for sb in subs) / 1e9:.3f} GB in all")
+    del subs  # drop_graphs below must free them
+    runs = {"eager": [], "captured": []}
+    for kind in ("eager", "captured", "captured", "eager"):
+        runs[kind].append(_base_call(searchers[kind], queries, params))
+    e, c = runs["eager"][0], runs["captured"][0]
+    label = f"base L={L} {n_pipe} sub-batches"
+    _same_run(label, e, c, ("ids", "dists", "steps", "d2h", "launches"))
+    if c["launches"] != {"pq_lookup": c["steps"]}:
+        raise AssertionError(f"captured {label}: launches {c['launches']} for "
+                             f"{c['steps']} steps")
+    calls = {k: lambda s=s: s.search(queries, params) for k, s in searchers.items()}
+    # peak reserved: captured with its pools; eager with them dropped (as a
+    # process that never captures); then the captures again
+    reserved = {"captured": _peak_reserved_gb(calls["captured"])}
+    searchers["captured"].drop_graphs()
+    reserved["eager"] = _peak_reserved_gb(calls["eager"])
+    calls["captured"]()
+    prof = {k: _profiled_busy(call) for k, call in calls.items()}
+    walls = {k: " / ".join(f"{r['wall_s']:.4f}" for r in v) for k, v in runs.items()}
+    log(f"captured {label}: ids, distances, steps ({c['steps']}: one replay each), "
+        f"readback waits ({c['d2h']}) and launches {c['launches']} identical to the "
+        f"eager step's; walls eager {walls['eager']} s, captured {walls['captured']} s;"
+        f" host waits a call eager {e['waits']}, captured {c['waits']}; peak GB "
+        f"allocated eager {e['peak_gb']:.2f}, captured {c['peak_gb']:.2f}; peak GB "
+        f"reserved eager {reserved['eager']:.2f}, captured {reserved['captured']:.2f};"
+        f" capture {captures} (both searchers' first calls {first:.3f} s); eager "
+        f"{_busy_text(prof['eager'])}; captured {_busy_text(prof['captured'])}")
+    del searchers
+    torch.cuda.empty_cache()
+    return {"label": label, "walls": runs, "prof": prof}
+
+
+def phase_captured(prefix, dev, points=CAPTURED_POINTS, base=CAPTURED_BASE):
+    """Phase 18: the captured loop (models/compiled.py; base's captured
+    step) against the eager loop, its plain version, at `points` and
+    `base`; the 4-shard sharded search's check runs in phase 14, where its
+    shards are built. Returns the rows."""
+    from bang_tpu_torch.formats.bin_io import load_bin
+    from bang_tpu_torch.models.index import device_index_from_files
+
+    queries = load_bin(prefix + "_query.bin", np.uint8)
+    _start_profiler(dev)
+    rows, indexes = [], {}
+    for label, variant, L, fused, entry_mode, visited_mode, nq in points:
+        key = (variant, fused)
+        if key not in indexes:
+            indexes.clear()
+            torch.cuda.empty_cache()
+            indexes[key] = device_index_from_files(prefix, dev, variant,
+                                                   fused_frontier=fused)
+        rows.append(_captured_point(indexes[key], variant, L, entry_mode, visited_mode,
+                                    queries[:nq], label))
+    indexes.clear()
+    torch.cuda.empty_cache()
+    for L, n_pipe in base:
+        rows.append(_captured_base(prefix, dev, L, n_pipe, queries))
+    return rows
 
 
 def _against_exact(what, exact_runs, bloom_runs):
@@ -1306,36 +1656,30 @@ def phase_streaming(dev, totals):
 
 @contextlib.contextmanager
 def _shard_iters():
-    """Record the iterations of every shard search in parallel/sharded: of
-    search_sharded's rounds (traverse_together, wrapped) and of the
-    per-shard loop (traverse, wrapped); yields the list they are appended
-    to."""
+    """Record the iterations of each shard's walk in the per-shard loop
+    (parallel/sharded.traverse, wrapped); yields the list they are
+    appended to."""
     from bang_tpu_torch.parallel import sharded
 
-    iters, together, alone = [], sharded.traverse_together, sharded.traverse
-
-    def together_recorded(*args, **kwargs):
-        states = together(*args, **kwargs)
-        iters.extend(state.it for state in states)
-        return states
+    iters, alone = [], sharded.traverse
 
     def alone_recorded(*args, **kwargs):
         state = alone(*args, **kwargs)
-        iters.append(state.it)
+        iters.append(int(state.it))
         return state
 
-    sharded.traverse_together, sharded.traverse = together_recorded, alone_recorded
+    sharded.traverse = alone_recorded
     try:
         yield iters
     finally:
-        sharded.traverse_together, sharded.traverse = together, alone
+        sharded.traverse = alone
 
 
 def _per_shard_loop(mesh, si, queries, params):
-    """The shards searched one after another, each to its end
-    (parallel/sharded._local_search, one host read per shard per iteration),
-    then merged: what search_sharded computed before its shards stepped
-    together in rounds, and must still return."""
+    """The shards searched one after another on the eager loop, each to its
+    end (parallel/sharded._local_search, one host read per shard per
+    iteration), then merged: what search_sharded computes, and must
+    return."""
     from bang_tpu_torch.parallel import sharded
 
     row = mesh.devices[0]
@@ -1351,31 +1695,60 @@ def _per_shard_loop(mesh, si, queries, params):
                               params.k)
 
 
-def _rounds_against_loop(mesh, si, queries, L, ids_rounds, iters_rounds, wall_rounds):
-    """search_sharded (its rounds, already run once: ids, shard iterations,
-    wall) against the per-shard loop at L, in the order rounds, loop, loop,
-    rounds: ids and every shard's iterations identical; both walls."""
+def _sharded_call(mesh, si, queries, params):
+    """search_sharded once, synchronised: a dict of its host ids and
+    distances, each shard's iterations and distance computations (its
+    SearchStats), the kernels it launched, wall and peak GB. A key's first
+    call steps the shards in rounds on the eager loop, then captures each
+    shard's walk; later calls launch them."""
     from bang_tpu_torch.parallel.sharded import search_sharded
+
+    stats = []
+    before = _launches()
+    (ids, dists), wall, peak = _timed(lambda: search_sharded(mesh, si, queries, params,
+                                                             stats=stats))
+    return {"ids": _host_ids(ids), "dists": dists.cpu().numpy(),
+            "iters": [st.iters for st in stats],
+            "dist_comps": [st.n_dist_comps for st in stats], "launches": _delta(before),
+            "wall_s": wall, "peak_gb": peak}
+
+
+def _rounds_against_loop(mesh, si, queries, L, first):
+    """search_sharded at L after its first call `first` (the rounds on the
+    eager loop, then the captures), in the order captured, loop, loop,
+    captured: the per-shard loop's ids and shard iterations identical to
+    the first call's; the captured calls' ids, iterations, distance
+    computations and launches identical to it. Returns the walls."""
     from bang_tpu_torch.utils.config import SearchParams
 
     params = SearchParams(L=L, k=K, beam_width=BEAM_EXTRA["inmemory"][0],
                           extra_iters=BEAM_EXTRA["inmemory"][1])
-    walls = {"rounds": [wall_rounds], "loop": []}
-    for kind in ("loop", "loop", "rounds"):
-        fn = _per_shard_loop if kind == "loop" else search_sharded
-        with _shard_iters() as iters:
-            (ids, _), wall, _ = _timed(lambda: fn(mesh, si, queries, params))
+    walls = {"rounds": [first["wall_s"]], "captured": [], "loop": []}
+    for kind in ("captured", "loop", "loop", "captured"):
+        if kind == "loop":
+            with _shard_iters() as iters:
+                (ids, _), wall, _ = _timed(lambda: _per_shard_loop(mesh, si, queries,
+                                                                   params))
+            run = {"ids": _host_ids(ids), "iters": iters}
+            keys = ("ids", "iters")
+        else:
+            run = _sharded_call(mesh, si, queries, params)
+            wall = run["wall_s"]
+            keys = ("ids", "dists", "iters", "dist_comps", "launches")
         walls[kind].append(wall)
-        ids = _host_ids(ids)
-        if not np.array_equal(ids, ids_rounds) or iters != iters_rounds:
-            raise AssertionError(
-                f"sharded L={L}: the {kind} differs from search_sharded's first run: "
-                f"ids on {int((ids != ids_rounds).any(axis=1).sum())} queries, shard "
-                f"iterations {iters} vs {iters_rounds}")
-    log(f"sharded fused L={L}: rounds (search_sharded) walls "
-        + " / ".join(f"{w:.4f}" for w in walls["rounds"]) + " s, per-shard loop "
+        for key in keys:
+            same = (np.array_equal(run[key], first[key])
+                    if isinstance(run[key], np.ndarray) else run[key] == first[key])
+            if not same:
+                raise AssertionError(f"sharded L={L}: the {kind} differs from "
+                                     f"search_sharded's first call in {key}")
+    log(f"sharded fused L={L}: first call (rounds, eager loop) "
+        f"{walls['rounds'][0]:.4f} s, captured "
+        + " / ".join(f"{w:.4f}" for w in walls["captured"]) + " s, per-shard loop "
         + " / ".join(f"{w:.4f}" for w in walls["loop"]) + f" s; ids and shard "
-        f"iterations {iters_rounds} identical")
+        f"iterations {first['iters']} identical; the captured calls' distance "
+        f"computations {first['dist_comps']} and launches {first['launches']} "
+        "identical to the rounds'")
     return walls
 
 
@@ -1420,23 +1793,21 @@ def _k1_widths(dev, kern):
 
 def _sharded_rows(mesh, si, queries, gt, L, label, beam=BEAM_EXTRA["inmemory"][0],
                   extra=BEAM_EXTRA["inmemory"][1]):
-    """search_sharded at L: (ids, dists, row) with the row's recall,
+    """search_sharded at L (the key's first call: the eager rounds, then the
+    captures): (the call's _sharded_call dict, row) with the row's recall,
     iterations of each shard, wall and peak memory."""
-    from bang_tpu_torch.parallel.sharded import search_sharded
     from bang_tpu_torch.utils.config import SearchParams
     from bang_tpu_torch.utils.recall import calculate_recall
 
     params = SearchParams(L=L, k=K, beam_width=beam, extra_iters=extra)
-    with _shard_iters() as iters:
-        (ids, dists), wall, peak = _timed(lambda: search_sharded(mesh, si, queries,
-                                                                 params))
-    ids, dists = _host_ids(ids), dists.cpu().numpy()
-    row = {"L": L, "recall": calculate_recall(gt[0], ids, K, gt[1]), "iters": list(iters),
-           "wall_s": wall, "peak_gb": peak}
+    run = _sharded_call(mesh, si, queries, params)
+    wall, peak = run["wall_s"], run["peak_gb"]
+    row = {"L": L, "recall": calculate_recall(gt[0], run["ids"], K, gt[1]),
+           "iters": run["iters"], "wall_s": wall, "peak_gb": peak}
     log(f"sharded {label} L={L}: recall@10 {row['recall']:.2f}, shard iterations "
         f"{row['iters']}, wall {wall:.4f} s (qps {len(queries) / wall:.1f}), peak "
         f"{peak:.2f} GB")
-    return ids, dists, row
+    return run, row
 
 
 def _merge_alone(si, queries, params, dev):
@@ -1557,16 +1928,16 @@ def phase_sharded(prefix, dev, totals, kern, base_rows):
     rows, fused_ids = [], {}
     for L in SHARD_L:
         def fused_rows():
-            ids, dists, row = _sharded_rows(mesh, si, queries, gt, L, "fused")
-            row["walls"] = _rounds_against_loop(mesh, si, queries, L, ids, row["iters"],
-                                                row["wall_s"])
-            return ids, dists, row
+            run, row = _sharded_rows(mesh, si, queries, gt, L, "fused")
+            row["walls"] = _rounds_against_loop(mesh, si, queries, L, run)
+            return run["ids"], run["dists"], row
 
         ids_f, d_f, row_f = counted(f"sharded fused L={L}", {"frontier_lookup"},
                                     fused_rows, totals)
-        ids_s, _, row_s = counted(f"sharded scattered L={L}", {"pq_lookup"},
-                                  lambda: _sharded_rows(mesh, si_sc, queries, gt, L,
-                                                        "scattered"), totals)
+        run_s, row_s = counted(f"sharded scattered L={L}", {"pq_lookup"},
+                               lambda: _sharded_rows(mesh, si_sc, queries, gt, L,
+                                                     "scattered"), totals)
+        ids_s = run_s["ids"]
         same = (ids_f == ids_s).all(axis=1)
         if not same.all() or row_f["iters"] != row_s["iters"]:
             raise AssertionError(
@@ -1594,29 +1965,35 @@ def phase_sharded(prefix, dev, totals, kern, base_rows):
 
     si_ex = dataclasses.replace(si, codes=None, codebook=None, fused_rows=None,
                                 _placed={})
-    ex_ids, ex_d, ex_row = counted(
+    ex_run, ex_row = counted(
         f"sharded exact L={EXACT_SHARD_L}", set(),
         lambda: _sharded_rows(mesh, si_ex, queries, gt, EXACT_SHARD_L, "exact",
                               *BEAM_EXTRA["exactdistance"]), totals)
-    _check_output(ex_ids, ex_d, queries, data, len(data))
+    _check_output(ex_run["ids"], ex_run["dists"], queries, data, len(data))
     _best([ex_row], "sharded exact")
     del si, si_sc, si_ex
     torch.cuda.empty_cache()
 
     def data_parallel():
         index = device_index_from_files(prefix, dev)
-        (ids, _), wall, peak = _timed(lambda: search_data_parallel(
-            make_mesh(2, 1, [dev] * 2), index, queries, params))
+        runs = []
+        for _ in range(2):  # the rounds, then the captured walks
+            stats = []
+            (ids, _), wall, peak = _timed(lambda: search_data_parallel(
+                make_mesh(2, 1, [dev] * 2), index, queries, params, stats=stats))
+            runs.append((_host_ids(ids), [st.iters for st in stats], wall, peak))
         one = search_inmemory(index, queries, params)[0]
-        return _host_ids(ids), _host_ids(one), wall, peak
+        return runs, _host_ids(one)
 
-    dp, one, wall, peak = counted("data parallel", {"frontier_lookup"}, data_parallel,
-                                  totals)
-    if not np.array_equal(dp, one):
-        raise AssertionError(f"data parallel: ids differ from search_inmemory on "
-                             f"{int((dp != one).any(axis=1).sum())} queries")
-    log(f"data parallel (2, 1) L={best['L']}: ids identical to search_inmemory on all "
-        f"{len(dp)} queries; wall {wall:.4f} s, peak {peak:.2f} GB")
+    runs, one = counted("data parallel", {"frontier_lookup"}, data_parallel, totals)
+    for (dp, iters, wall, peak), kind in zip(runs, ("rounds", "captured")):
+        if not np.array_equal(dp, one) or iters != runs[0][1]:
+            raise AssertionError(f"data parallel {kind}: ids differ from search_inmemory"
+                                 f" on {int((dp != one).any(axis=1).sum())} queries, or "
+                                 f"row iterations {iters} from {runs[0][1]}")
+        log(f"data parallel (2, 1) L={best['L']} {kind}: ids identical to "
+            f"search_inmemory on all {len(dp)} queries, row iterations {iters}; wall "
+            f"{wall:.4f} s, peak {peak:.2f} GB")
     torch.cuda.empty_cache()
 
     single = {"medoid": {r["L"]: r["ids"] for r in base_rows}}
@@ -1632,9 +2009,10 @@ def phase_sharded(prefix, dev, totals, kern, base_rows):
     for entry_mode in ("medoid", "sampled"):
         def run():
             rows, expected = _base_tp_rows(prefix, dev, entry_mode, single[entry_mode])
-            if pk.pq_lookup.launches != expected:
+            k1 = pk.launch_counts()["pq_lookup"]
+            if k1 != expected:
                 raise AssertionError(f"sharded base {entry_mode}: K1 launched "
-                                     f"{pk.pq_lookup.launches} times, expected {expected}")
+                                     f"{k1} times, expected {expected}")
             log(f"sharded base {entry_mode}: K1 launches {expected} = {SHARDS} per step "
                 "(and per sub-batch's sampled entries)")
             return rows
@@ -1962,7 +2340,7 @@ def scale_run(dev, n, out_dir):
         out = os.path.join(out_dir, f"scale_{n}_{label}.json")
         row = run_eval.main(["--prefix", prefix, "--out", out, "--device", dev.type,
                              *args])
-        counts[label] = {k.__name__: k.launches for k in pk.KERNELS}
+        counts[label] = pk.launch_counts()
         log(f"scale {label}: launches {counts[label]}")
         return row
 
@@ -2021,7 +2399,7 @@ def counted(label, launched, fn, totals):
 
     pk.reset_launch_counts()
     out = fn()
-    counts = {k.__name__: k.launches for k in pk.KERNELS}
+    counts = pk.launch_counts()
     log(f"{label}: launches {counts}")
     if any((c > 0) != (name in launched) for name, c in counts.items()):
         raise AssertionError(f"{label}: launches {counts}, expected only {launched}")
@@ -2044,6 +2422,7 @@ def search_phases(dev, totals, kern, builds):
     of phase 14's K1 checks and phase 17's K2 checks, whose errors go into
     `kern`). Phase 17 runs after 14, on the bundle, once the processes
     `builds` have built its breadth bundles."""
+    _start_profiler(dev)  # before the first capture (phase 5's bang_alloc)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         prefix = os.path.join(tmp, "synth1m")
         build_bundle(prefix, dev)
@@ -2097,6 +2476,11 @@ def search_phases(dev, totals, kern, builds):
                 raise AssertionError(f"{rows[-1]['search']}: recall@10 "
                                      f"{rows[-1]['recall']:.2f} < {RECALL_TARGET}")
         best_b, base_rows = phase_base(prefix, dev, totals)
+        t0 = time.perf_counter()
+        counted("captured against eager", {"pq_lookup", "frontier_lookup",
+                                           "exact_frontier"},
+                lambda: phase_captured(prefix, dev), totals)
+        log(f"phase 18 (captured against eager) {time.perf_counter() - t0:.1f}s")
         phase_bloom(prefix, dev, totals)
         phase_warmup_serving(prefix, dev, totals)
         best_s = phase_sharded(prefix, dev, totals, kern, base_rows)

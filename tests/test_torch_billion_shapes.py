@@ -48,7 +48,7 @@ def _state(q, l, max_iters, beam, bloom=False):
         l2_dists=_meta((q, mi), torch.float32),
         bloom=_meta((q, BF_ENTRIES + 1), torch.uint8) if bloom else None,
         active=_meta((q,), torch.bool),
-        it=1,
+        it=_meta((), torch.int32),  # the iteration counter lives on the device
     )
 
 
@@ -57,7 +57,8 @@ def _check_step_out(out, q, beam, bloom):
     assert new_state.wl_ids.shape == (q, L) and new_state.wl_ids.dtype == torch.int32
     assert new_state.wl_dist.shape == (q, L) and new_state.wl_dist.dtype == torch.float32
     assert new_state.visited_ids.shape == (q, MAX_ITERS * beam)
-    assert new_state.l2_dists.dtype == torch.float32 and new_state.it == 2
+    assert new_state.l2_dists.dtype == torch.float32
+    assert new_state.it.shape == () and new_state.it.dtype == torch.int32
     assert (new_state.bloom is not None) == bloom
     assert parents.shape == (q, beam) and parents.dtype == torch.int32
     assert cont.shape == () and cont.dtype == torch.bool

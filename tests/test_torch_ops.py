@@ -63,6 +63,24 @@ def test_pq_tables_and_lookup_match_jax(dim, m):
     _close(tl, jl)
 
 
+def test_pq_tables_summed_in_place_keep_their_bits():
+    """The tables summed in place in one temporary equal, bit for bit, the
+    three-temporary form piv_norm - 2 cross + q_norm; the query and the
+    codebook are left as they were."""
+    data = synthetic.make_clustered_data(2000, 30, n_clusters=8, seed=1)
+    pq = synthetic.train_pq(data, 8, kmeans_iters=4, seed=1)
+    cb = tpq.prepare_pq_codebook(pq.pivots, pq.centroid, pq.chunk_offsets, "cpu")
+    queries = torch.from_numpy(data[:16] * 1.37 + 0.5)
+    saved = queries.clone(), cb.piv_chunks.clone(), cb.piv_norms.clone()
+    got = tpq.pq_distance_tables(cb, queries)
+    qc = (queries - cb.centroid)[:, cb.dim_idx] * cb.dim_mask
+    cross = torch.einsum("qct,cjt->qcj", qc, cb.piv_chunks)
+    want = cb.piv_norms[None] - 2.0 * cross + (qc * qc).sum(-1)[:, :, None]
+    assert torch.equal(got, want) and got.is_contiguous()
+    assert all(torch.equal(a, b) for a, b in zip(saved, (queries, cb.piv_chunks,
+                                                         cb.piv_norms)))
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.uint8])
 def test_l2_distance_matches_jax(dtype):
     rng = np.random.default_rng(3)

@@ -278,6 +278,9 @@ def test_search_sharded_steps_shards_together(dataset, name, monkeypatch):
     monkeypatch.setattr(sharded, "traverse_together",
                         reads.during(together, together_reads))
     ids, dists = sharded.search_sharded(mesh, si, queries, params)
+    # the iteration counters live on the device: read after the counted runs
+    alone_iters = [int(it) for it in alone_iters]
+    together_iters = [int(it) for it in together_iters]
     assert torch.equal(ids, torch.cat(want_ids)) and torch.equal(dists, torch.cat(want_d))
     assert together_iters == alone_iters and len(alone_iters) == 8
     if name == "capped":
@@ -312,6 +315,7 @@ def test_search_data_parallel_steps_rows_together(dataset, monkeypatch):
     monkeypatch.setattr(sharded, "traverse_together", reads.during(together, counted))
     ids, dists = sharded.search_data_parallel(sharded.make_mesh(4, 1, CPU8), index,
                                               queries, params)
+    iters = [int(it) for it in iters]  # device counters, read after the counted run
     assert torch.equal(ids, torch.cat([r[0] for r in rows]))
     assert torch.equal(dists, torch.cat([r[1] for r in rows]))
     assert iters == [r[2].iters for r in rows]

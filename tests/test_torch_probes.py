@@ -250,11 +250,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_kernel_registry_covers_k1_to_k6():
-    """Six wrappers, five kernel sources: `lookup_packed` launches K1's."""
+    """Six wrappers, five kernel sources (`lookup_packed` launches K1's),
+    and the captured search's WHILE-node source, graph_loop.cu
+    (models/compiled.py), which is no kernel wrapper."""
     names = [k.__name__ for k in pk.KERNELS]
     assert names == ["pq_lookup", "frontier_lookup", "exact_frontier",
                      "lookup_packed", "frontier_packed", "row_gather"]
-    assert set(_build.SIGNATURES) == set(names) - {"lookup_packed"}
+    assert set(_build.SIGNATURES) == set(names) - {"lookup_packed"} | {"graph_loop"}
     assert sorted(p.stem for p in _build.SRC_DIR.glob("*.cu")) == sorted(_build.SIGNATURES)
     for k in pk.KERNELS:
         k.launches = 3
