@@ -78,7 +78,7 @@ def _robust_prune_batch(cand_vecs, cand_dists, cand_valid, r: int, alpha: float)
     iota = torch.arange(c, device=dev)[None, :]
     sel_idx = torch.full((b, r), -1, dtype=torch.int64, device=dev)
     sel_valid = torch.zeros((b, r), dtype=torch.bool, device=dev)
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = cand_dists.new_full((), float("inf"))  # a fill: no host copy in a capture
     for i in range(r):
         pick = torch.argmin(torch.where(alive, cand_dists, inf), dim=1)  # first min
         valid = alive.gather(1, pick[:, None])[:, 0]

@@ -384,9 +384,14 @@ def materialize_host(gen, log=None) -> np.ndarray:
 def shard_build_hbm_bytes(n_s: int, d: int, r: int, batch: int,
                           l_build: int, k_overflow: int | None = None) -> int:
     """Peak device-memory model of one shard's formats/vamana.
-    build_vamana_graph call in the port (eager PyTorch: transients are
-    freed between the stages of a batch, so the peak is the persistent
-    tensors plus the largest stage).
+    build_vamana_graph call in the port: the persistent tensors plus the
+    largest stage of a batch. It holds for the captured build as for the
+    eager one: a pass's first batch runs eagerly (its transients freed
+    between stages), and the captured insert's private pool, taken after
+    the allocator's cache is emptied, reuses the freed stages' blocks
+    inside the graph, so it peaks at the same largest stage (chip_smoke
+    phase 15 measured 0.99x this model for each shard of both builds;
+    phase 19 the same peak for the eager and the captured build).
 
     Persistent: the shard's u8 vectors, f32 norms, int32 adjacency and
     degrees. Stages, each f32 [rows, pool, D] for the candidate vectors

@@ -29,18 +29,38 @@ Port notes. The JAX scatters with mode="drop" send dropped writes to an
 out-of-range index; PyTorch raises there (a CUDA device asserts). The port
 gives the adjacency and the degrees one extra trash row at index N, which
 no edge points to and no search reads, and aims dropped writes at it: every
-step keeps its fixed shape, and the host reads the device only at the
-heartbeat, every 100 batches (plus the traversal's one `active.any()` read
-per iteration: the build stays on the eager loop, traversal.traverse, not
-the captured one of models/compiled.py, because every batch builds new
-query tensors; ROADMAP Queue 1 item 13b). `jnp.unique(size=, fill_value=)`
-becomes a sort, a first-occurrence mask and a scatter into a buffer
-pre-filled with N; `lax.associative_scan(maximum)` becomes `torch.cummax`;
-`jnp.argsort` and `jnp.sort` are stable, as `torch.argsort(stable=True)`.
+step keeps its fixed shape.
+
+The insert is the JAX package's one compiled program per batch shape. On
+the card it is a CUDA graph (models/compiled.CapturedLoop) in three parts:
+the prologue (the batch's vectors, the exact distance function and the
+traversal's start from the medoid), the traversal step under a WHILE node,
+and the epilogue (the prune, the adjacency scatter, the reverse edges, the
+overflow re-prune and the dropped count), which writes into the adjacency
+and the degrees in place, as JAX's donated buffers are updated, so the
+next launch walks the live graph. Its static inputs are the batch's point
+ids ([B] int32), the medoid (an int32 device scalar, data as in JAX) and,
+for the streaming insert, the extra candidates ([B, P] int32); the key is
+(B, r, alpha, l, max_iters, k_overflow, max_in, P). A build runs each
+pass's first batch on the eager loop (traversal.traverse, the plain
+version, one host read a step), captures at the second and launches the
+graph for every later batch; the pass's graph and its pool are dropped
+before the next pass's capture and before the build returns. The host
+reads the device only at the heartbeat, every 100 batches. The CPU runs
+the eager insert (`_insert_batch` on CPU tensors or with no graph cache),
+and so does `build_vamana_graph_eager` on any device: the captured
+build's plain version.
+`jnp.unique(size=, fill_value=)` becomes a sort, a first-occurrence mask
+and a scatter into a buffer pre-filled with N; `lax.associative_scan(
+maximum)` becomes `torch.cummax`; `jnp.argsort` and `jnp.sort` are stable,
+as `torch.argsort(stable=True)`. No op of the insert reads the device
+back (a capture refuses one): the reverse edges' sources are an expand,
+not a `repeat_interleave`.
 """
 
 from __future__ import annotations
 
+import inspect
 import sys
 import time
 
@@ -50,8 +70,9 @@ import torch
 from bang_tpu_torch.device import assert_exact_float32, resolve_device
 from bang_tpu_torch.formats.accel import _robust_prune_batch
 from bang_tpu_torch.formats.synthetic import medoid_of
+from bang_tpu_torch.models import compiled
 from bang_tpu_torch.models.index import squared_norms_host
-from bang_tpu_torch.models.traversal import make_exact_distance_fn, run_traversal
+from bang_tpu_torch.models.traversal import make_exact_distance_fn, start_traversal
 from bang_tpu_torch.ops.l2 import l2_distance_to_candidates, squared_norms
 
 
@@ -85,78 +106,116 @@ def _unique_padded(x, size: int, fill: int):
     m = xs.shape[0]
     out = torch.full((max(m, size) + 1,), fill, dtype=x.dtype, device=x.device)
     out[torch.where(first, slot, torch.full_like(slot, out.shape[0] - 1))] = xs
-    out[-1] = fill
+    out[-1:].fill_(fill)  # a fill kernel: a 0-d setitem copies from the host
     return out[:size]
 
 
-def _insert_batch(adj, degrees, vectors, norms, p_ids, medoid: int, r: int,
+def _insert_parts(adj, degrees, vectors, norms, r: int, alpha: float, l: int,
+                  max_iters: int, k_overflow: int, max_in: int):
+    """The insert of a batch as (start, finish), the prologue and epilogue
+    of a captured loop (models/compiled.py) around the traversal's step.
+
+    start(p_ids [B] int32, medoid (int or int scalar tensor), extra_cand
+    [B, P] int32, optional) -> (step, state, ctx): the greedy search's
+    start. finish(ctx, final) -> (dropped,): the prune, the scatter into
+    `adj` [N+1, r] and `degrees` [N+1] (row N is the trash row) in place,
+    the reverse edges and the overflow re-prune; `dropped` is the count of
+    reverse edges dropped (device scalar)."""
+    n = adj.shape[0] - 1
+    dev = adj.device
+
+    def start(p_ids, medoid, extra_cand=None):
+        dist_fn = make_exact_distance_fn(vectors[p_ids.long()].float(), vectors)
+        step, state = start_traversal(adj, dist_fn, medoid, p_ids.shape[0], l,
+                                      max_iters, 1, dev)
+        return step, state, (p_ids, extra_cand)
+
+    def finish(ctx, final):
+        p_ids, extra_cand = ctx
+        b = p_ids.shape[0]
+        p = p_ids.long()
+        # Vamana candidate pool: the visited set of the greedy search + old edges
+        pool = [final.visited_ids, adj[p]]
+        if extra_cand is not None:
+            pool.append(extra_cand.to(torch.int32))
+        cand = torch.cat(pool, dim=1)
+        new_rows, new_deg = _prune_ids(vectors, norms, p_ids, cand, r, alpha)
+        adj[p] = new_rows
+        degrees[p] = new_deg
+
+        # ---- reverse edges (p -> c becomes c -> p) ----
+        src = p_ids[:, None].expand(b, r).reshape(-1)  # [B*r]
+        dst = new_rows.reshape(-1)
+        valid = dst != src  # self-padding rows produce dst == src
+        # skip targets that already list src (would waste a slot forever)
+        valid &= ~(adj[dst.long()] == src[:, None]).any(dim=1)
+        trash = torch.full_like(dst, n)
+        key = torch.where(valid, dst, trash)  # invalid edges sort to the end
+        order = torch.argsort(key, stable=True)
+        dsts = key[order]
+        srcs = src[order]
+        edge_valid = dsts < n
+        pos = torch.arange(b * r, dtype=torch.int32, device=dev)
+        isnew = torch.ones_like(edge_valid)
+        isnew[1:] = dsts[1:] != dsts[:-1]
+        first = torch.cummax(torch.where(isnew, pos, torch.zeros_like(pos)), 0).values
+        slot = degrees[dsts.clamp_max(n - 1).long()] + (pos - first)  # rank in dst group
+        fits = edge_valid & (slot < r)
+        # (dst, slot) pairs are unique within the batch: conflict-free scatter
+        at = torch.where(fits, dsts, trash).long()
+        adj[at, slot.clamp(0, r - 1).long()] = srcs
+        degrees.index_add_(0, at, torch.ones_like(at, dtype=degrees.dtype))
+
+        # ---- overflowing targets: re-prune current edges + incoming ----
+        ovf = edge_valid & (slot >= r)
+        ovf_ids = _unique_padded(torch.where(ovf, dsts, trash), k_overflow, n)
+        row = torch.searchsorted(ovf_ids, dsts).clamp_max(k_overflow - 1)
+        col = slot - r
+        # guard: the edge's dst actually made it into the capped unique set
+        inc_ok = ovf & (ovf_ids[row] == dsts) & (col < max_in)
+        inc = torch.full((k_overflow + 1, max_in), -1, dtype=torch.int32, device=dev)
+        inc[torch.where(inc_ok, row, torch.full_like(row, k_overflow)),
+            col.clamp(0, max_in - 1).long()] = srcs
+        t_valid = ovf_ids < n
+        safe_t = ovf_ids.clamp_max(n - 1)
+        cand_t = torch.cat([adj[safe_t.long()], inc[:k_overflow]], dim=1)  # [K, r+max_in]
+        t_rows, t_deg = _prune_ids(vectors, norms, safe_t, cand_t, r, alpha)
+        at_t = torch.where(t_valid, ovf_ids, torch.full_like(ovf_ids, n)).long()
+        adj[at_t] = t_rows
+        degrees[at_t] = t_deg
+        return ((ovf & ~inc_ok).sum(),)
+
+    return start, finish
+
+
+def _insert_batch(adj, degrees, vectors, norms, p_ids, medoid, r: int,
                   alpha: float, l: int, max_iters: int, k_overflow: int,
-                  max_in: int, extra_cand=None):
-    """Insert a batch of points: search + prune + scatter + reverse edges.
-    adj [N+1, r] and degrees [N+1] (row N is the trash row) are updated in
-    place. Returns the count of dropped reverse edges (device scalar).
+                  max_in: int, extra_cand=None, cache=None):
+    """Insert a batch of points: search + prune + scatter + reverse edges
+    (`_insert_parts`). adj [N+1, r] and degrees [N+1] (row N is the trash
+    row) are updated in place. medoid: an int or an int scalar tensor on
+    their device. Returns the count of dropped reverse edges (device
+    scalar).
 
     extra_cand [B, P] int32 (optional): more candidate ids joined into the
     prune pool. Streaming inserts pass each point's nearest peers in its
     batch here, so that a batch landing in a small graph links to its own
-    points, not only to the medoid's neighborhood (models/streaming.py)."""
-    n = adj.shape[0] - 1
-    b = p_ids.shape[0]
-    dev = adj.device
-    p = p_ids.long()
-    dist_fn = make_exact_distance_fn(vectors[p].float(), vectors)
-    final = run_traversal(adj, dist_fn, medoid, b, l, max_iters, 1, dev)
+    points, not only to the medoid's neighborhood (models/streaming.py).
 
-    # Vamana candidate pool: the visited set of the greedy search + old edges
-    pool = [final.visited_ids, adj[p]]
+    cache: a models/compiled.GraphCache on a CUDA device: the key's first
+    call on the eager loop, then the captured insert, its inputs (p_ids,
+    the medoid as an int32 device scalar, extra_cand) copied into the
+    graph's static buffers (compiled.run). None, or CPU tensors: the eager
+    loop, the captured insert's plain version."""
+    start, finish = _insert_parts(adj, degrees, vectors, norms, r, alpha, l,
+                                  max_iters, k_overflow, max_in)
+    inputs = (p_ids, medoid)
     if extra_cand is not None:
-        pool.append(extra_cand.to(torch.int32))
-    cand = torch.cat(pool, dim=1)
-    new_rows, new_deg = _prune_ids(vectors, norms, p_ids, cand, r, alpha)
-    adj[p] = new_rows
-    degrees[p] = new_deg
-
-    # ---- reverse edges (p -> c becomes c -> p) ----
-    src = p_ids.repeat_interleave(r)  # [B*r]
-    dst = new_rows.reshape(-1)
-    valid = dst != src  # self-padding rows produce dst == src
-    # skip targets that already list src (would waste a slot forever)
-    valid &= ~(adj[dst.long()] == src[:, None]).any(dim=1)
-    trash = torch.full_like(dst, n)
-    key = torch.where(valid, dst, trash)  # invalid edges sort to the end
-    order = torch.argsort(key, stable=True)
-    dsts = key[order]
-    srcs = src[order]
-    edge_valid = dsts < n
-    pos = torch.arange(b * r, dtype=torch.int32, device=dev)
-    isnew = torch.ones_like(edge_valid)
-    isnew[1:] = dsts[1:] != dsts[:-1]
-    first = torch.cummax(torch.where(isnew, pos, torch.zeros_like(pos)), 0).values
-    slot = degrees[dsts.clamp_max(n - 1).long()] + (pos - first)  # rank in dst group
-    fits = edge_valid & (slot < r)
-    # (dst, slot) pairs are unique within the batch: conflict-free scatter
-    at = torch.where(fits, dsts, trash).long()
-    adj[at, slot.clamp(0, r - 1).long()] = srcs
-    degrees.index_put_((at,), torch.ones_like(degrees[at]), accumulate=True)
-
-    # ---- overflowing targets: re-prune current edges + incoming ----
-    ovf = edge_valid & (slot >= r)
-    ovf_ids = _unique_padded(torch.where(ovf, dsts, trash), k_overflow, n)
-    row = torch.searchsorted(ovf_ids, dsts).clamp_max(k_overflow - 1)
-    col = slot - r
-    # guard: the edge's dst actually made it into the capped unique set
-    inc_ok = ovf & (ovf_ids[row] == dsts) & (col < max_in)
-    inc = torch.full((k_overflow + 1, max_in), -1, dtype=torch.int32, device=dev)
-    inc[torch.where(inc_ok, row, torch.full_like(row, k_overflow)),
-        col.clamp(0, max_in - 1).long()] = srcs
-    t_valid = ovf_ids < n
-    safe_t = ovf_ids.clamp_max(n - 1)
-    cand_t = torch.cat([adj[safe_t.long()], inc[:k_overflow]], dim=1)  # [K, r+max_in]
-    t_rows, t_deg = _prune_ids(vectors, norms, safe_t, cand_t, r, alpha)
-    at_t = torch.where(t_valid, ovf_ids, torch.full_like(ovf_ids, n)).long()
-    adj[at_t] = t_rows
-    degrees[at_t] = t_deg
-    return (ovf & ~inc_ok).sum()
+        inputs += (extra_cand.to(torch.int32),)
+    key = (p_ids.shape[0], r, alpha, l, max_iters, k_overflow, max_in,
+           0 if extra_cand is None else extra_cand.shape[1])
+    (dropped,), _ = compiled.run(cache, key, inputs, start, finish, max_iters)
+    return dropped
 
 
 def build_vamana_graph(
@@ -183,7 +242,28 @@ def build_vamana_graph(
     download. init=(adj0, deg0) warm-starts from an existing graph
     (DiskANN-style incremental build, degree upgrades allowed): rows must
     list real edges first; slots at or past the degree become
-    self-padding."""
+    self-padding.
+
+    On a CUDA device every batch after each pass's first is one launch of
+    the captured insert (module docstring); on the CPU every batch runs
+    the eager insert."""
+    return _build(vectors, r, device, l_build, alpha, batch, seed, n_passes,
+                  k_overflow, verbose, medoid, return_device, init, eager=False)
+
+
+def build_vamana_graph_eager(vectors, r: int, device, **kwargs):
+    """build_vamana_graph with every batch on the eager insert
+    (`_insert_batch` with no graph cache: one host read a traversal step),
+    on any device: the
+    captured build's plain version. Takes build_vamana_graph's
+    arguments."""
+    bound = inspect.signature(build_vamana_graph).bind(vectors, r, device, **kwargs)
+    bound.apply_defaults()
+    return _build(*bound.arguments.values(), eager=True)
+
+
+def _build(vectors, r, device, l_build, alpha, batch, seed, n_passes, k_overflow,
+           verbose, medoid, return_device, init, *, eager: bool):
     assert_exact_float32()
     dev = resolve_device(device)
     is_device = isinstance(vectors, torch.Tensor)
@@ -239,31 +319,37 @@ def build_vamana_graph(
     alphas = [1.0] * (n_passes - 1) + [float(alpha)]
     t_start = time.time()
     order = np.arange(n)
-    for pass_i, a in enumerate(alphas):
-        rng.shuffle(order)
-        n_batches = -(-n // batch)
-        for bi, s in enumerate(range(0, n, batch)):
-            p_ids = order[s : s + batch]
-            if len(p_ids) < batch:  # keep one batch shape
-                # pad with OTHER ids from the shuffled order (cycling the
-                # short remainder would re-insert the same points several
-                # times in one batch: each copy gets a distinct reverse-edge
-                # slot, permanently eating degree slack). Distinct whenever
-                # batch <= n; wraps only for datasets smaller than a batch.
-                p_ids = np.resize(order, s + batch)[s : s + batch]
-            dropped = _insert_batch(
-                adj_dev, deg_dev, vec_dev, norms_dev,
-                torch.as_tensor(p_ids.astype(np.int32), device=dev), medoid,
-                r=r, alpha=a, l=l_build, max_iters=max_iters,
-                k_overflow=k_overflow, max_in=max_in,
-            )
-            if verbose and bi % 100 == 0:
-                # the scalar read is the builder's only sync (heartbeat)
-                print(
-                    f"[vamana] pass {pass_i} batch {bi}/{n_batches} "
-                    f"dropped_rev={int(dropped)} t={time.time() - t_start:.0f}s",
-                    file=sys.stderr, flush=True,
-                )
+    # the medoid as data: a static input of the captured insert
+    med_dev = torch.full((), medoid, dtype=torch.int32, device=dev)
+    cache = compiled.GraphCache()  # one pass's graph (alpha is in the key)
+    try:
+        for pass_i, a in enumerate(alphas):
+            rng.shuffle(order)
+            n_batches = -(-n // batch)
+            for bi, s in enumerate(range(0, n, batch)):
+                p_ids = order[s : s + batch]
+                if len(p_ids) < batch:  # keep one batch shape
+                    # pad with OTHER ids from the shuffled order (cycling the
+                    # short remainder would re-insert the same points several
+                    # times in one batch: each copy gets a distinct reverse-edge
+                    # slot, permanently eating degree slack). Distinct whenever
+                    # batch <= n; wraps only for datasets smaller than a batch.
+                    p_ids = np.resize(order, s + batch)[s : s + batch]
+                dropped = _insert_batch(
+                    adj_dev, deg_dev, vec_dev, norms_dev,
+                    compiled.device_input(p_ids.astype(np.int32), adj_dev), med_dev,
+                    r=r, alpha=a, l=l_build, max_iters=max_iters,
+                    k_overflow=k_overflow, max_in=max_in,
+                    cache=None if eager else cache)
+                if verbose and bi % 100 == 0:
+                    # the heartbeat: past each pass's first batch, the only read
+                    print(
+                        f"[vamana] pass {pass_i} batch {bi}/{n_batches} "
+                        f"dropped_rev={int(dropped)} t={time.time() - t_start:.0f}s",
+                        file=sys.stderr, flush=True,
+                    )
+    finally:
+        cache.clear()  # the graphs and their pools: the caller needs the memory
     if verbose:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

@@ -31,8 +31,8 @@ issued about 60 operations. The outer loop stays on the host, as in JAX:
 the host gather sits between steps. The first search of a key (the query
 split and SearchParams) runs the eager step, then captures; the searcher
 holds one key's graphs at a time. The chunk-sharded subclass
-(parallel/base_tp.py), whose shards may sit on several devices, stays
-eager.
+(parallel/base_tp.py) captures the same way when its shards share one
+card, and stays eager when they sit on several devices.
 """
 
 from __future__ import annotations
@@ -359,8 +359,8 @@ class BaseVariantSearcher:
         self.last_n_d2h = 0
         self._subs_key, self._subs = None, []  # the sub-batches of one key
 
-    # capture each sub-batch's prologue and step on the card (a subclass
-    # whose step spans several devices sets False)
+    # capture each sub-batch's prologue and step on the card (the
+    # chunk-sharded subclass sets False when its step spans several devices)
     captured = True
 
     def drop_graphs(self) -> None:

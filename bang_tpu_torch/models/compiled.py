@@ -9,13 +9,21 @@ only for the result. A search here has three parts, each captured by
 PyTorch into a CUDA graph (`torch.cuda.CUDAGraph(keep_graph=True)`) on one
 private memory pool:
 
-  prologue  the call's start (`start(queries)`: PQ tables and their
-            packing, entries, traversal.init_state) over a static query
-            buffer, then the first `go` flag (traversal.go_flag);
+  prologue  the call's start (`start(*inputs)`: for a search the PQ
+            tables and their packing, entries, traversal.init_state) over
+            static input buffers, then the first `go` flag
+            (traversal.go_flag);
   step      one iteration written into the state's own buffers
             (traversal.step_), then the next `go`;
   epilogue  `finish(ctx, state)`: the re-rank or the worklist's head, and
             the three counters as one [3] tensor.
+
+The static inputs are a tuple of device buffers, each of the dtype and
+shape of the call that captured it: a search's [Q, D] float32 queries; an
+insert's [B] int32 point ids, its medoid as an int32 device scalar and
+its [B, P] int32 extra candidates (formats/vamana.py); the streaming
+search's queries and medoid (models/streaming.py). A buffer is never cast
+to float32 on the way in (an int32 id past 2^24 would not survive it).
 
 `csrc/graph_loop.cu` joins them into prologue -> WHILE{step} -> epilogue,
 a WHILE conditional node whose handle a one-thread kernel sets from `go`
@@ -34,18 +42,25 @@ build's own (ctypes, built like the kernels by ops/_build.py): it needs no
 block size, and the host neither polls nor enqueues more than one launch a
 call. No runtime switch picks between designs.
 
-A call copies its queries into the static buffer, launches the graph and
+A call copies its inputs into the static buffers, launches the graph and
 clones the outputs into fresh tensors, all enqueued on the current stream
 with no host wait: calls issued back to back each get their own answer
 (`bench._measure_point`'s pipelined calls overlap their host work with the
-card's). The one blocking wait is the caller's readback (`readback`).
+card's). Host arrays go through pinned memory (`device_input`): each call
+pins a fresh block of PyTorch's caching host allocator, which records an
+event on the copy and hands the block out again only after that event, so
+the next call's host write cannot race a copy still in flight. The one
+blocking wait is the caller's readback (`readback`).
 
 The first call of a key runs the eager loop (traversal.traverse, the plain
 version), which builds the kernels and sets up cuBLAS and the allocator
-outside a capture, then captures; later calls of that key launch the
-graph. A capture or launch failure raises: there is no return to the
-eager loop on CUDA tensors. The CPU runs the eager loop because its
-tensors are on the CPU.
+outside a capture. A search (`search`) captures right after it; the
+Vamana insert and the streaming index (`run`) capture at the key's second
+call, so that a shape that comes once (the last short batch, the
+streaming insert's doubling ramp) is never captured. Later calls of the
+key launch the graph. A capture or launch failure raises: there is no
+return to the eager loop on CUDA tensors. The CPU runs the eager loop
+because its tensors are on the CPU (`captures`).
 
 Launch counts. A launch from a graph runs no Python, so each kernel counts
 its own launches on the card (ops/_build.launch_counter, whose counters
@@ -63,7 +78,10 @@ shape, SearchParams: L, beam, max_iters, visited_mode, entry_mode, k,
 rerank, ...), one captured loop per walk slot. It holds one key at a time,
 so an L sweep does not pile up pools; `drop_graphs(owner)` frees them
 (`BANGSearch.bang_set_searchparams` with new parameters, `bang_unload`,
-`models/index.free_device_index`).
+`models/index.free_device_index`). A Vamana build keeps one GraphCache of
+its own, cleared at each pass (alpha is part of the key) and before it
+returns; a StreamingIndex keeps one per kind, insert and search, which a
+churn alternates.
 """
 
 from __future__ import annotations
@@ -78,11 +96,13 @@ from bang_tpu_torch.ops import _build
 
 
 class GraphCache:
-    """The captured loops of one search key, by walk slot."""
+    """The captured loops of one search key, by walk slot; `calls` counts
+    the eager calls made under the key (`run`)."""
 
     def __init__(self):
         self.key = None
         self.loops: dict = {}
+        self.calls = 0
 
     def get(self, key, slot):
         """The loop of `slot` under `key`, or None; a new key drops every
@@ -98,7 +118,7 @@ class GraphCache:
     def clear(self) -> None:
         for loop in self.loops.values():
             loop.close()
-        self.loops, self.key = {}, None
+        self.loops, self.key, self.calls = {}, None, 0
 
 
 def graph_cache(owner) -> GraphCache:
@@ -124,13 +144,29 @@ def capture(graph, fn, device, pool=None, stream=None):
         return fn()
 
 
+def captures(device) -> bool:
+    """Whether work on `device` runs as captured graphs: on CUDA devices
+    only; the CPU runs the eager loop."""
+    return torch.device(device).type == "cuda"
+
+
+def device_input(x, like: torch.Tensor) -> torch.Tensor:
+    """`x` (numpy, a Python scalar or a tensor) on `like`'s device in its
+    own dtype, with no host wait: host data goes through a pinned block of
+    the caching host allocator, which is not handed out again before the
+    copy from it has run."""
+    t = torch.as_tensor(x)
+    if t.device != like.device:
+        if like.device.type == "cuda":
+            t = t.pin_memory()
+        t = t.to(like.device, non_blocking=True)
+    return t
+
+
 def device_queries(queries, like: torch.Tensor) -> torch.Tensor:
     """`queries` (numpy or a tensor) as float32 on `like`'s device, with no
-    host wait: host data goes through pinned memory."""
-    t = torch.as_tensor(queries)
-    if t.device != like.device:
-        t = t.pin_memory().to(like.device, non_blocking=True)
-    return t.float()
+    host wait (`device_input`)."""
+    return device_input(queries, like).float()
 
 
 def readback(*tensors) -> list:
@@ -148,27 +184,29 @@ def readback(*tensors) -> list:
     return outs
 
 
-def run_eager(start, finish, queries, max_iters: int):
-    """The plain version of a captured loop: start, traversal.traverse,
-    finish, eagerly. Returns (finish's tensors, SearchStats)."""
-    step, state, ctx = start(queries)
+def run_eager(start, finish, inputs: tuple, max_iters: int):
+    """The plain version of a captured loop: start(*inputs),
+    traversal.traverse, finish, eagerly. Returns (finish's tensors,
+    SearchStats)."""
+    step, state, ctx = start(*inputs)
     final = traverse(step, state, max_iters)
     return finish(ctx, final), SearchStats(final.it, final.n_expanded,
                                            final.n_dist_comps)
 
 
 class CapturedLoop:
-    """One search of a fixed shape as one CUDA graph on one device.
+    """One loop of a fixed shape (a search, an insert) as one CUDA graph on
+    one device.
 
-    start(queries) -> (step, state, ctx) is the search's prologue over a
-    [Q, D] float32 query tensor (`queries` sizes the static buffer);
-    finish(ctx, final_state) -> tuple of tensors its epilogue. Call it with
-    a call's queries: (finish's tensors, fresh, and SearchStats). Records
-    `capture_s`, `graph_bytes` (the memory its pool took) and `part_bytes`
-    (what the capture of each part added to it)."""
+    start(*inputs) -> (step, state, ctx) is its prologue over the static
+    input buffers (`inputs`, device tensors, size them: each buffer keeps
+    its tensor's dtype and shape); finish(ctx, final_state) -> tuple of
+    tensors its epilogue. `launch(*inputs)` runs it on a call's inputs.
+    Records `capture_s`, `graph_bytes` (the memory its pool took) and
+    `part_bytes` (what the capture of each part added to it)."""
 
-    def __init__(self, start, finish, queries: torch.Tensor, max_iters: int):
-        dev = queries.device
+    def __init__(self, start, finish, inputs: tuple, max_iters: int):
+        dev = inputs[0].device
         self._lib = _build.load_library("graph_loop")
         self._exec = ctypes.c_void_p()
         self._graph = ctypes.c_void_p()
@@ -176,12 +214,12 @@ class CapturedLoop:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()  # as each capture does: the pool's bytes show
         reserved = torch.cuda.memory_reserved(dev)
-        self.queries = torch.empty_like(queries)
+        self.inputs = tuple(torch.empty_like(t) for t in inputs)
         graphs = [torch.cuda.CUDAGraph(keep_graph=True) for _ in range(3)]
         pool = torch.cuda.graph_pool_handle()
 
         def prologue():
-            step, state, ctx = start(self.queries)
+            step, state, ctx = start(*self.inputs)
             return step, state, ctx, go_flag(state, max_iters)
 
         def body():
@@ -214,12 +252,14 @@ class CapturedLoop:
         self.capture_s = time.perf_counter() - t0
         self.graph_bytes = torch.cuda.memory_reserved(dev) - reserved
 
-    def launch(self, queries):
-        """Enqueue one search of `queries` on the current stream; returns
-        (finish's tensors, cloned, and SearchStats), without a host
-        wait."""
-        self.queries.copy_(device_queries(queries, self.queries))
-        with torch.cuda.device(self.queries.device):
+    def launch(self, *inputs):
+        """Enqueue one run on `inputs` (numpy or tensors, in the order of
+        the static buffers, each copied into its buffer) on the current
+        stream; returns (finish's tensors, cloned, and SearchStats),
+        without a host wait."""
+        for buf, x in zip(self.inputs, inputs, strict=True):
+            buf.copy_(device_input(x, buf))
+        with torch.cuda.device(self.inputs[0].device):
             err = self._lib.graph_loop_launch(
                 self._exec, torch.cuda.current_stream().cuda_stream)
         _build.check_launch("graph_loop", err)
@@ -234,7 +274,7 @@ class CapturedLoop:
             self._exec = self._graph = ctypes.c_void_p()
             _build.check_launch("graph_loop", err)
         self._graphs = self.step = self.state = self.ctx = self.out = None
-        self.go = self.queries = None
+        self.go = self.inputs = None
 
     def __del__(self):
         try:
@@ -251,7 +291,25 @@ def search(owner, key, queries, device, max_iters: int, start, finish):
     loop = cache.get(key, 0)
     if loop is not None:
         return loop.launch(queries)
-    q = device_queries(queries, torch.empty(0, device=device))
+    q = (device_queries(queries, torch.empty(0, device=device)),)
     out = run_eager(start, finish, q, max_iters)
     cache.put(0, CapturedLoop(start, finish, q, max_iters))
     return out
+
+
+def run(cache: GraphCache | None, key, inputs: tuple, start, finish, max_iters: int):
+    """One loop on device tensors `inputs` through `cache`: at the key's
+    first call the eager loop (run_eager), at its second the capture and
+    then the graph's launch, afterwards the launch alone. With no cache,
+    or on the CPU (`captures`), the eager loop. Returns (finish's tensors,
+    SearchStats), with no host wait once captured."""
+    if cache is None or not captures(inputs[0].device):
+        return run_eager(start, finish, inputs, max_iters)
+    loop = cache.get(key, 0)
+    if loop is None:
+        if cache.calls == 0:
+            cache.calls += 1
+            return run_eager(start, finish, inputs, max_iters)
+        loop = CapturedLoop(start, finish, inputs, max_iters)
+        cache.put(0, loop)
+    return loop.launch(*inputs)

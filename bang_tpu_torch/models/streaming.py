@@ -23,12 +23,24 @@ clears the flag, delete sets it. The tensors hold capacity + 1 rows: row
 `capacity` is the trash row that `_insert_batch` aims the writes at that
 the JAX scatters drop; it is deleted forever, so no search or repair takes
 it for a live node. The search is the exact scattered traversal (plain
-PyTorch, no kernel), as in the JAX package, on the eager loop
-(traversal.traverse, one host read an iteration), not the captured one of
-models/compiled.py: the graph changes between searches and each batch
-builds new query tensors (ROADMAP Queue 1 item 13b). Ties in the result
-and in the batch peers break lowest index first (a stable sort, as
-`lax.top_k`).
+PyTorch, no kernel), as in the JAX package. Ties in the result and in the
+batch peers break lowest index first (a stable sort, as `lax.top_k`).
+
+On the card both of JAX's compiled programs are captured loops (models/
+compiled.py): the search (`_search_parts`: the traversal from the medoid,
+then the tombstone filter and the top-k as its epilogue; key (Q, L, k,
+max_iters, beam); static inputs the f32 queries and the medoid) and the
+insert (formats/vamana._insert_batch, whose epilogue writes the adjacency
+and the degrees in place). The index holds one graph cache per kind, so a
+churn that alternates inserts and searches keeps both graphs. A key is
+captured at its second call (its first runs the eager loop), so the
+insert's doubling ramp captures no shape that does not come back. The
+medoid is a device input: a new medoid (the first insert, `consolidate`'s
+election) needs no new capture. The scrub of recycled slots and the batch
+peers run eagerly before the insert's launch, and `consolidate` stays
+eager (its loop has no condition to read). The CPU runs the eager loop,
+and so does an index whose `captured` is False on any device: the captured
+index's plain version.
 """
 
 from __future__ import annotations
@@ -39,28 +51,37 @@ import torch
 from bang_tpu_torch.constants import INVALID_ID
 from bang_tpu_torch.device import assert_exact_float32, resolve_device
 from bang_tpu_torch.formats.vamana import _insert_batch, _prune_ids
-from bang_tpu_torch.models.traversal import make_exact_distance_fn, run_traversal
+from bang_tpu_torch.models import compiled
+from bang_tpu_torch.models.traversal import make_exact_distance_fn, start_traversal
 from bang_tpu_torch.utils.config import SearchParams
 
 
-def _search_streaming(adj, vectors, deleted, queries, medoid: int, l: int, k: int,
-                      max_iters: int, beam: int):
-    """Exact traversal from `medoid`, then the k nearest live worklist
-    entries: (ids [Q, k] int32, INVALID_ID padded; dists [Q, k] f32, +inf
-    padded; iterations)."""
-    q = queries.shape[0]
-    queries_f32 = queries.float()
-    dist_fn = make_exact_distance_fn(queries_f32, vectors)
-    final = run_traversal(adj, dist_fn, medoid, q, l, max_iters, beam, queries.device)
-    # tombstones occupy worklist slots during the walk (routing through them
-    # keeps the graph connected) but are filtered from the answer
-    wl_ids, wl_dist = final.wl_ids, final.wl_dist
-    dead = deleted[wl_ids.clamp_min(0).long()] | (wl_ids == INVALID_ID)
-    d = wl_dist.masked_fill(dead, float("inf"))
-    sd, order = torch.sort(d, dim=1, stable=True)
-    sd = sd[:, :k]
-    ids = wl_ids.gather(1, order[:, :k]).masked_fill(torch.isinf(sd), INVALID_ID)
-    return ids, sd, final.it
+def _search_parts(adj, vectors, deleted, l: int, k: int, max_iters: int, beam: int):
+    """The streaming search as (start, finish), the prologue and epilogue
+    of a captured loop (models/compiled.py). start(queries [Q, D] f32,
+    medoid: an int or an int scalar tensor) -> (step, state, None): the
+    exact traversal's start from the medoid. finish(None, final) -> (ids
+    [Q, k] int32, INVALID_ID padded; dists [Q, k] f32, +inf padded): the k
+    nearest live worklist entries."""
+
+    def start(queries_f32, medoid):
+        dist_fn = make_exact_distance_fn(queries_f32, vectors)
+        step, state = start_traversal(adj, dist_fn, medoid, queries_f32.shape[0], l,
+                                      max_iters, beam, adj.device)
+        return step, state, None
+
+    def finish(_, final):
+        # tombstones occupy worklist slots during the walk (routing through
+        # them keeps the graph connected) but are filtered from the answer
+        wl_ids, wl_dist = final.wl_ids, final.wl_dist
+        dead = deleted[wl_ids.clamp_min(0).long()] | (wl_ids == INVALID_ID)
+        d = wl_dist.masked_fill(dead, float("inf"))
+        sd, order = torch.sort(d, dim=1, stable=True)
+        sd = sd[:, :k]
+        ids = wl_ids.gather(1, order[:, :k]).masked_fill(torch.isinf(sd), INVALID_ID)
+        return ids, sd
+
+    return start, finish
 
 
 def _repair_batch(adj, degrees, vectors, norms, deleted, row_ids, r: int, alpha: float):
@@ -123,7 +144,11 @@ class StreamingIndex:
     `deleted` marks both tombstones and never-used slots, so "live" is
     exactly `~deleted`. `medoid`, `hwm` (the high-water mark: slots ever
     allocated), `free` (consolidated slots, reused first) and
-    `n_tombstones` are host values."""
+    `n_tombstones` are host values. On a CUDA device inserts and searches
+    run their captured loops (module docstring); with `captured` False
+    they run the eager loop there too (the plain version)."""
+
+    captured = True
 
     def __init__(self, capacity: int, dim: int, r: int = 32,
                  dtype=np.float32, l_build: int = 48, alpha: float = 1.44,
@@ -148,6 +173,24 @@ class StreamingIndex:
         self.hwm = 0
         self.free: list[int] = []
         self.n_tombstones = 0
+        # one captured loop per kind: a churn alternates the two
+        self.graphs = {"insert": compiled.GraphCache(), "search": compiled.GraphCache()}
+
+    def _graphs(self, kind):
+        """The graph cache of `kind` (insert, search), None when `captured`
+        is False (compiled.run then runs the eager loop)."""
+        return self.graphs[kind] if self.captured else None
+
+    def _medoid_input(self):
+        """The medoid as the loops take it: an int32 scalar on the device
+        (data, so a new medoid needs no new capture)."""
+        return compiled.device_input(torch.tensor(self.medoid, dtype=torch.int32),
+                                     self.degrees)
+
+    def drop_graphs(self) -> None:
+        """Free the captured loops and their memory pools."""
+        for cache in self.graphs.values():
+            cache.clear()
 
     @classmethod
     def from_built(cls, vectors: np.ndarray, adj: np.ndarray,
@@ -192,8 +235,9 @@ class StreamingIndex:
     def insert(self, batch: np.ndarray) -> np.ndarray:
         """Insert a batch of vectors; returns their assigned ids [B] int32.
 
-        Each chunk is one `_insert_batch` (greedy search over the live graph
-        + robust prune + reverse edges) with two streaming additions: the
+        Each chunk is one insert (formats/vamana: greedy search over the
+        live graph + robust prune + reverse edges; the captured insert on
+        the card) with two streaming additions: the
         chunk's own nearest peers join the candidate pool (a batch landing
         in a small graph must link to its own points), and while the graph
         is smaller than the batch the insert ramps in doubling chunks, so
@@ -215,9 +259,9 @@ class StreamingIndex:
         b = batch.shape[0]
         first = self.n_live == 0
         ids_np = self._alloc(b)
-        ids = torch.as_tensor(ids_np, device=self.device)
+        ids = compiled.device_input(ids_np, self.degrees)
         at = ids.long()
-        vecs = torch.as_tensor(batch, device=self.device).to(self.vectors.dtype)
+        vecs = compiled.device_input(batch, self.vectors).to(self.vectors.dtype)
         self.vectors[at] = vecs
         self.norms[at] = (vecs.float() ** 2).sum(-1)
         # recycled slots: scrub the previous tenant's edges so that they
@@ -229,10 +273,10 @@ class StreamingIndex:
             self.medoid = int(ids_np[0])
         peers = _batch_peers(vecs, ids, min(8, max(1, b - 1)))
         _insert_batch(
-            self.adj, self.degrees, self.vectors, self.norms, ids, self.medoid,
+            self.adj, self.degrees, self.vectors, self.norms, ids, self._medoid_input(),
             r=self.r, alpha=self.alpha, l=self.l_build, max_iters=self.l_build + 16,
             k_overflow=min(self.k_overflow, max(256, b)), max_in=self.r,
-            extra_cand=peers,
+            extra_cand=peers, cache=self._graphs("insert"),
         )
         return ids_np
 
@@ -250,12 +294,14 @@ class StreamingIndex:
         occupy worklist slots, so at a high tombstone fraction raise L or
         consolidate() (FreshDiskANN repairs at ~10-20%)."""
         assert_exact_float32()
-        q = torch.as_tensor(np.asarray(queries), device=self.device)
-        ids, dists, _ = _search_streaming(
-            self.adj, self.vectors, self.deleted, q, self.medoid,
-            l=params.L, k=params.k, max_iters=params.max_iters, beam=params.beam_width,
-        )
-        return ids.cpu().numpy(), dists.cpu().numpy()
+        q = compiled.device_queries(np.asarray(queries), self.vectors)
+        args = (params.L, params.k, params.max_iters, params.beam_width)
+        start, finish = _search_parts(self.adj, self.vectors, self.deleted, *args)
+        (ids, dists), _ = compiled.run(self._graphs("search"), (tuple(q.shape), *args),
+                                       (q, self._medoid_input()), start, finish,
+                                       params.max_iters)
+        ids, dists = compiled.readback(ids, dists)
+        return ids.numpy(), dists.numpy()
 
     def consolidate(self, batch: int = 512) -> int:
         """Repair the edges into tombstones and free their slots; returns

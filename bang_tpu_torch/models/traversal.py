@@ -14,11 +14,12 @@ and the loop's condition is JAX's `lax.while_loop` condition,
 step. On CUDA tensors the search is one CUDA graph whose WHILE node
 evaluates that condition on the device (models/compiled.py) and runs its
 body, `step_`, the step written into the state's own buffers, only while
-the condition holds. On CPU tensors, and for the callers that build new
-tensors every batch (formats/vamana.py, models/streaming.py), `traverse`
-is the loop's plain version: the host counts the iterations and reads `active.any()`
-once per iteration, as the reference reads its `nextIter` flag
-(parANN.cu:595). Independent walks (the shards of parallel/sharded.py on
+the condition holds. The Vamana insert and the streaming
+index run the same captured loop over static input buffers (formats/
+vamana.py, models/streaming.py). On CPU tensors, and at a key's first
+call on the card, `traverse` is the loop's plain version: the host counts
+the iterations and reads `active.any()` once per iteration, as the
+reference reads its `nextIter` flag (parANN.cu:595). Independent walks (the shards of parallel/sharded.py on
 the CPU) step together in rounds, with one read of their stacked flags a
 round (`traverse_together`). Two distance functions drive it: PQ table lookup
 (`make_pq_distance_fn`, kernels K1 and K2) and exact L2
@@ -256,13 +257,19 @@ def start_traversal(adj, distance_fn, medoid: int, q: int, l: int,
     `traverse_together`. use_bloom: filter with the bloom visited set
     (ops/bloom.py).
 
-    By default every query enters at the shared `medoid`. entry_ids [Q] or
-    [Q, P<=beam] int32 (sampled-entry mode, models/entry.py) give per-query
-    entries instead, [Q, P] seeding P beam slots; entry_dists (same shape)
-    are their worklist-seed distances and are required with them."""
+    By default every query enters at the shared `medoid`: a host int, or an
+    integer scalar tensor on `device`, read as data (no host read), as JAX
+    passes its medoid; a captured loop takes it as a static input, so a
+    new medoid needs no new capture. entry_ids [Q] or [Q, P<=beam] int32
+    (sampled-entry mode, models/entry.py) give per-query entries instead,
+    [Q, P] seeding P beam slots; entry_dists (same shape) are their
+    worklist-seed distances and are required with them."""
     step = make_step(adj, distance_fn, beam, use_bloom)
     if entry_ids is None:
-        entry = torch.full((q, 1), medoid, dtype=torch.int32, device=device)
+        if isinstance(medoid, torch.Tensor):
+            entry = medoid.to(torch.int32).reshape(1, 1).expand(q, 1)
+        else:
+            entry = torch.full((q, 1), medoid, dtype=torch.int32, device=device)
         # the entry's distance: distance_fn's seed_fn when it has one (all
         # queries share this one node, so no gather and no kernel is needed)
         seed_fn = getattr(distance_fn, "seed_fn", distance_fn)

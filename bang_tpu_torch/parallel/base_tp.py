@@ -76,6 +76,18 @@ def make_sampled_entry_tp(mesh: Mesh):
     return entry_tp
 
 
+def one_device(devices, home) -> bool:
+    """Whether every device of `devices` is `home` (a CUDA device without
+    an index is the current one)."""
+    def canonical(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    return all(canonical(d) == canonical(home) for d in devices)
+
+
 class ShardedBaseSearcher(BaseVariantSearcher):
     """BaseVariantSearcher with the codes and tables chunk-sharded over the
     'model' axis of `mesh`.
@@ -84,11 +96,15 @@ class ShardedBaseSearcher(BaseVariantSearcher):
     only the tables, the device step and the sampled entries differ. The
     searcher's device (its traversal state, the psum) is mesh.home. The
     [N, m] codes never go whole to one device: they stay in host RAM until
-    each shard's chunk slice is copied to its own device. Its step stays
-    on the eager loop on the card (`captured` False): the shards' lookups
-    may sit on several devices, which one captured graph cannot span."""
+    each shard's chunk slice is copied to its own device.
 
-    captured = False
+    When every device of the row is mesh.home (the shards take turns on
+    one card), each sub-batch's prologue and step are captured as in the
+    base searcher, the S shards' K1 launches and the psum inside the step's
+    graph: `captured` is True. A row that spans several devices keeps the
+    eager step (`captured` False): one CUDA graph cannot span devices, and
+    a graph a shard joined by events waits for a multi-device host (ROADMAP
+    Queue 1 item 18)."""
 
     def __init__(self, prefix: str, mesh: Mesh, **kwargs):
         if "device" in kwargs:
@@ -96,6 +112,7 @@ class ShardedBaseSearcher(BaseVariantSearcher):
         super().__init__(prefix, keep_codes_on_host=True, device=mesh.home, **kwargs)
         self.mesh = mesh
         row = mesh.devices[0]
+        self.captured = one_device(row, mesh.home)
         s = len(row)
         codes = self.codes_np
         self.codes_np = None  # the host copy is not needed after the split

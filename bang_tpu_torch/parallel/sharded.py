@@ -281,7 +281,7 @@ def _walk_all(owner, key, walks, max_iters: int, home, stats=None) -> list:
                 for (_, _, ctx), f, (_, _, _, finish) in zip(started, finals, walks)]
         if cuda:
             for i, (q, (_, _, start, finish)) in enumerate(zip(queries, walks)):
-                cache.put(i, compiled.CapturedLoop(start, finish, q, max_iters))
+                cache.put(i, compiled.CapturedLoop(start, finish, (q,), max_iters))
     if stats is not None:
         stats.extend(st for _, st in done)
     return done

@@ -114,6 +114,31 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 eager with the graphs dropped), graph pool GB by part,
                 capture s, and one profiled call of each (kernel ms, busy
                 share). Runs after phase 10.
+ 19. captured loops — the Vamana build and the streaming index captured
+                (the chunk-sharded base's capture is checked in phase 14),
+                each against its eager plain version on the card. The
+                Vamana build (formats/vamana.build_vamana_graph: each
+                pass's first batch eager, then one graph launch a batch) on
+                200K points of the bench's clustered u8 data at phase 4's
+                settings (R=64, l_build 48,
+                batch 4096, alpha 1.44, 2 passes), against
+                build_vamana_graph_eager, in the order eager, captured,
+                captured, eager: adj, degrees and every batch's dropped
+                count identical bit for bit (u8: integer distances below
+                2^24); the captured build's blocking host waits outside its
+                eager first batches and its captures equal to the
+                heartbeats plus two synchronises (the build's last and the
+                wall's); walls, waits,
+                capture s, pool GB, peak GB; one batch profiled on each
+                (busy share). The streaming index at phase
+                13's point, one index eager (`captured` False) and one
+                captured: the states identical after every insert, the
+                delete, the consolidate (the medoid among the victims, so
+                re-elected) and the re-insert into the freed slots; search
+                ids and distances identical (eager, captured, captured,
+                eager) before the churn and after each step; inserts/s,
+                walls, pools, one insert and one search profiled on each.
+                No kernel launches.
  11. bloom    — visited_mode="bloom" (ops/bloom.py, plain PyTorch) on each
                 search of the bundle: in-memory fused L in {64, 128, 256}
                 (K2), in-memory scattered L=512 (K1), exact fused L in {30,
@@ -155,9 +180,14 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 (no kernel), recall@10 >= 90; search_data_parallel on a (2, 1)
                 mesh, ids identical to search_inmemory; ShardedBaseSearcher
                 on a (1, 4) mesh (8 sub-batches, base L in {30, 90}, medoid
-                and sampled entry): ids equal to the single-card base's on
-                >= 98% of slots, recall@10 >= 90, K1 launched 4 times a step
-                (and 4 times per sub-batch's sampled entries); then
+                and sampled entry), captured (its shards share the card)
+                beside one on the eager step, in the order eager, captured,
+                captured, eager: ids, distances, steps, readback waits and
+                K1 launches identical, K1 launched 4 times a step (and 4
+                times per sub-batch's sampled entries) as the kernel counts
+                it on the card; ids equal to the single-card base's on
+                >= 98% of slots, recall@10 >= 90; walls, pools, one
+                profiled call of each at L=90; then
                 entry.dryrun_multichip(4). Walls, iterations and peak memory.
                 At each fused L, search_sharded's first call (its shards
                 stepped together in rounds on the eager loop, then each
@@ -260,6 +290,9 @@ CAPTURED_POINTS = (
     ("exact fused batch 128", "exactdistance", 30, None, "medoid", "exact", 128),
 )
 CAPTURED_BASE = ((90, BASE_PIPELINE), (90, 1))  # (L, sub-batches)
+# phase 19: the captured Vamana build at phase 4's settings on this many of
+# the bench's points; the streaming index at phase 13's point
+CAPTURED_BUILD_N = 200_000
 # phase 11: the Ls searched in bloom mode, and the JAX package's bar for the
 # recall bloom may lose against the exact mask at the same L
 BLOOM_L = {"inmemory": (64, 128, 256), "exactdistance": (30, 60, 100)}
@@ -387,8 +420,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - _T0:7.1f}s] {msg}", flush=True)
 
 
 def phase_device():
@@ -1150,32 +1186,49 @@ def phase_base(prefix, dev, totals):
 
 
 @contextlib.contextmanager
-def _host_waits():
+def _host_waits(inside=()):
     """Count the host's blocking waits on the card while on: reads of a
-    CUDA tensor (bool, item, tolist, cpu) and synchronize calls (device,
-    stream, event). Yields a one-item list holding the count."""
-    count, saved = [0], []
+    CUDA tensor (bool, int, float, item, tolist, cpu) and synchronize calls
+    (device, stream, event). Yields a two-item list: the waits made outside
+    the functions `inside` ((owner, name) pairs, wrapped while on), then
+    those made inside them."""
+    count, saved, depth = [0, 0], [], [0]
 
     def wrap(owner, name, cuda_tensor):
         orig = getattr(owner, name)
 
         def counted(*args, **kwargs):
             if not cuda_tensor or args[0].is_cuda:
-                count[0] += 1
+                count[depth[0] > 0] += 1
             return orig(*args, **kwargs)
 
         saved.append((owner, name, orig))
         setattr(owner, name, counted)
 
-    for name in ("__bool__", "item", "tolist", "cpu"):
+    def enter(owner, name):
+        orig = getattr(owner, name)
+
+        def entered(*args, **kwargs):
+            depth[0] += 1
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+
+        saved.append((owner, name, orig))
+        setattr(owner, name, entered)
+
+    for name in ("__bool__", "__int__", "__float__", "item", "tolist", "cpu"):
         wrap(torch.Tensor, name, True)
     for owner in (torch.cuda.Event, torch.cuda.Stream):
         wrap(owner, "synchronize", False)
     wrap(torch.cuda, "synchronize", False)
+    for owner, name in inside:
+        enter(owner, name)
     try:
         yield count
     finally:
-        for owner, name, orig in saved:
+        for owner, name, orig in reversed(saved):
             setattr(owner, name, orig)
 
 
@@ -1430,6 +1483,299 @@ def phase_captured(prefix, dev, points=CAPTURED_POINTS, base=CAPTURED_BASE):
     for L, n_pipe in base:
         rows.append(_captured_base(prefix, dev, L, n_pipe, queries))
     return rows
+
+
+@contextlib.contextmanager
+def _recorded(owner, name, out):
+    """Wrap owner.name while on: each call's result is appended to `out`."""
+    orig = getattr(owner, name)
+
+    def recording(*args, **kwargs):
+        result = orig(*args, **kwargs)
+        out.append(result)
+        return result
+
+    setattr(owner, name, recording)
+    try:
+        yield out
+    finally:
+        setattr(owner, name, orig)
+
+
+@contextlib.contextmanager
+def _captures_recorded():
+    """Record each CapturedLoop made while on: (capture s, pool bytes)."""
+    from bang_tpu_torch.models import compiled
+
+    out, init = [], compiled.CapturedLoop.__init__
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        out.append((self.capture_s, self.graph_bytes))
+
+    compiled.CapturedLoop.__init__ = recording
+    try:
+        yield out
+    finally:
+        compiled.CapturedLoop.__init__ = init
+
+
+def _vamana_build(vectors, medoid, dev, eager):
+    """One build of `vectors` (on the card) at phase 4's settings, verbose
+    (the heartbeat on), through build_vamana_graph (captured) or
+    build_vamana_graph_eager: adj, degrees, the dropped count of every
+    batch, wall, host waits (outside the eager loops and the captures, and
+    inside them), captures and peak GB."""
+    from bang_tpu_torch.formats import vamana
+    from bang_tpu_torch.models import compiled
+
+    fn = vamana.build_vamana_graph_eager if eager else vamana.build_vamana_graph
+    kw = {k: VAMANA[k] for k in ("l_build", "batch", "alpha", "n_passes", "seed")}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with _recorded(vamana, "_insert_batch", []) as dropped, _captures_recorded() as caps, \
+            _host_waits(inside=((compiled, "run_eager"),
+                                (compiled.CapturedLoop, "__init__"))) as waits:
+        t0 = time.perf_counter()
+        adj, deg, _ = fn(vectors, R, dev, medoid=medoid, return_device=True,
+                         verbose=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"adj": adj, "deg": deg, "dropped": torch.stack(dropped).cpu().numpy(),
+            "wall_s": wall, "waits": list(waits), "captures": caps,
+            "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9}
+
+
+def _captured_build(dev):
+    """Phase 19, the build: build_vamana_graph on CAPTURED_BUILD_N points of
+    the bench's data (bundles.build_bundle's clustered u8 recipe at that N)
+    at phase 4's settings, eager, captured,
+    captured, eager: adj, degrees and every batch's dropped count identical
+    (u8 data: every distance an integer below 2^24); the captured builds'
+    host waits outside their eager first batches and their captures equal
+    to the heartbeats plus two synchronises (the build's last, verbose,
+    and the wall's)."""
+    from bang_tpu_torch.formats.synthetic import make_clustered_data, medoid_of
+
+    n = CAPTURED_BUILD_N
+    vectors = make_clustered_data(n, D, n_clusters=max(64, min(4096, n // 1000)),
+                                  dtype=np.uint8, seed=VAMANA["seed"])
+    medoid = medoid_of(vectors)
+    vec_dev = torch.as_tensor(vectors, device=dev)
+    runs = {"eager": [], "captured": []}
+    for kind in ("eager", "captured", "captured", "eager"):
+        runs[kind].append(_vamana_build(vec_dev, medoid, dev, kind == "eager"))
+    ref = runs["eager"][0]
+    for kind, rows in runs.items():
+        for i, run in enumerate(rows):
+            same = (torch.equal(run["adj"], ref["adj"]) and torch.equal(run["deg"], ref["deg"])
+                    and np.array_equal(run["dropped"], ref["dropped"]))
+            if not same:
+                raise AssertionError(f"captured build: {kind} build {i} differs from the "
+                                     "first eager build (adjacency, degrees or dropped)")
+    n_batches = -(-CAPTURED_BUILD_N // VAMANA["batch"])
+    heartbeats = VAMANA["n_passes"] * len(range(0, n_batches, 100))
+    for run in runs["captured"]:
+        if run["waits"][0] != heartbeats + 2:
+            raise AssertionError(f"captured build: {run['waits'][0]} host waits outside "
+                                 f"the first batches and the captures, expected "
+                                 f"{heartbeats} heartbeats + the build's final synchronise"
+                                 f" + the wall's")
+        if len(run["captures"]) != VAMANA["n_passes"]:
+            raise AssertionError(f"captured build: {len(run['captures'])} captures for "
+                                 f"{VAMANA['n_passes']} passes")
+    e, c = runs["eager"][0], runs["captured"][0]
+    walls = {k: " / ".join(f"{r['wall_s']:.3f}" for r in v) for k, v in runs.items()}
+    log(f"captured build N={CAPTURED_BUILD_N} R={R} l_build {VAMANA['l_build']} batch "
+        f"{VAMANA['batch']} {VAMANA['n_passes']} passes: adj, degrees and the dropped "
+        f"counts of all {len(e['dropped'])} batches (sum {int(e['dropped'].sum())}) "
+        f"identical; walls eager {walls['eager']} s, captured {walls['captured']} s; "
+        f"blocking host waits a build eager {sum(e['waits'])} ({e['waits'][1]} in its "
+        f"eager loops), captured {sum(c['waits'])} ({c['waits'][1]} in each pass's first "
+        f"batch and the captures, {c['waits'][0]} = {heartbeats} heartbeats + the "
+        f"build's final synchronise + the wall's); captures " + ", ".join(
+            f"{cs:.3f} s pool {gb / 1e9:.3f} GB" for cs, gb in c["captures"])
+        + f"; peak GB above the vectors eager {e['peak_gb']:.3f}, captured "
+        f"{c['peak_gb']:.3f}")
+    prof = _insert_busy(vec_dev, e["adj"], e["deg"], medoid, dev)
+    log(f"captured build: one batch of {VAMANA['batch']} inserted into the built graph, "
+        f"eager {_busy_text(prof['eager'])}; captured {_busy_text(prof['captured'])}")
+    return {"walls": runs, "prof": prof}
+
+
+def _insert_busy(vectors, adj, deg, medoid, dev):
+    """One insert batch (phase 4's batch and settings, the last pass's
+    alpha) into a copy of the built graph, profiled on the eager insert and
+    on the captured one (after the key's eager call and its capture):
+    _profiled_busy of each."""
+    from bang_tpu_torch.formats import vamana
+    from bang_tpu_torch.models import compiled
+    from bang_tpu_torch.ops.l2 import squared_norms
+
+    n = vectors.shape[0]
+    graph = {kind: (torch.cat([adj, torch.full((1, R), n, dtype=adj.dtype, device=dev)]),
+                    torch.cat([deg, deg.new_zeros(1)])) for kind in ("eager", "captured")}
+    norms = squared_norms(vectors)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    p_ids = torch.randperm(n, generator=gen)[: VAMANA["batch"]].to(torch.int32).to(dev)
+    med = torch.full((), medoid, dtype=torch.int32, device=dev)
+    kw = dict(r=R, alpha=VAMANA["alpha"], l=VAMANA["l_build"],
+              max_iters=VAMANA["l_build"] + 16, k_overflow=max(512, VAMANA["batch"]),
+              max_in=R)
+    cache = compiled.GraphCache()
+
+    def captured():
+        return vamana._insert_batch(*graph["captured"], vectors, norms, p_ids, med,
+                                    cache=cache, **kw)
+
+    captured()  # the key's eager call
+    captured()  # its capture and first launch
+    prof = {"eager": _profiled_busy(lambda: vamana._insert_batch(
+                *graph["eager"], vectors, norms, p_ids, medoid, **kw)),
+            "captured": _profiled_busy(captured)}
+    cache.clear()
+    return prof
+
+
+def _streaming_step(label, ixs, what, fn, walls):
+    """fn(index) on the eager index, then the captured one (their states
+    compared after), each wall recorded under `what`."""
+    out = {}
+    for kind in ("eager", "captured"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[kind] = fn(ixs[kind])
+        torch.cuda.synchronize()
+        walls[kind].setdefault(what, []).append(time.perf_counter() - t0)
+    _same_states(label, ixs)
+    return out
+
+
+def _same_states(label, ixs):
+    e, c = ixs["eager"], ixs["captured"]
+    cap = e.capacity  # the trash row past it takes the dropped writes, in any order
+    same = (torch.equal(e.adj[:cap], c.adj[:cap])
+            and torch.equal(e.degrees[:cap], c.degrees[:cap])
+            and torch.equal(e.deleted, c.deleted) and e.medoid == c.medoid
+            and (e.hwm, e.free, e.n_tombstones) == (c.hwm, c.free, c.n_tombstones))
+    if not same:
+        raise AssertionError(f"captured streaming: the states differ after {label}")
+
+
+def _streaming_search(label, ixs, queries, params, walls):
+    """Searches in the order eager, captured, captured, eager: ids and
+    distances identical."""
+    got = []
+    for kind in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got.append(ixs[kind].search(queries, params))
+        walls[kind].setdefault(f"search {label}", []).append(time.perf_counter() - t0)
+    for ids, dists in got[1:]:
+        if not (np.array_equal(ids, got[0][0]) and np.array_equal(dists, got[0][1])):
+            raise AssertionError(f"captured streaming: search {label}: ids or distances "
+                                 "differ between the eager and the captured index")
+    return got[0][0]
+
+
+def _captured_streaming(dev):
+    """Phase 19, streaming: two StreamingIndexes at phase 13's point, one on
+    the eager loop (`captured` False), one captured; every insert made on
+    both, their states identical after each; searches (2,048 queries, L=64,
+    beam 2) identical before the churn, after the delete, after the
+    consolidate (the medoid among the victims: a re-election) and after the
+    re-insert into the freed slots."""
+    from bang_tpu_torch.formats.synthetic import make_clustered_data
+    from bang_tpu_torch.models.streaming import StreamingIndex
+
+    n, chunk = STREAM_N, STREAM_CHUNK
+    rng = np.random.default_rng(11)
+    pts = make_clustered_data(n, D, n_clusters=max(64, n // 1000), dtype=np.float32,
+                              seed=11)
+    queries = (pts[rng.integers(0, n, STREAM_Q)]
+               + rng.normal(0, 0.05, (STREAM_Q, D)).astype(np.float32))
+    ixs = {kind: StreamingIndex(capacity=n + chunk, dim=D, r=STREAM_R, l_build=32,
+                                device=dev) for kind in ("eager", "captured")}
+    ixs["eager"].captured = False
+    walls = {"eager": {}, "captured": {}}
+    with _captures_recorded() as caps:
+        _streaming_churn(ixs, pts, queries, walls, rng)
+    log("captured streaming: captures " + ", ".join(
+        f"{cs:.3f} s pool {gb / 1e9:.3f} GB" for cs, gb in caps))
+    for ix in ixs.values():
+        ix.drop_graphs()
+    del ixs
+    torch.cuda.empty_cache()
+    return walls
+
+
+def _streaming_churn(ixs, pts, queries, walls, rng):
+    """The churn of _captured_streaming on both indexes, then one insert
+    and one search of each profiled (_profiled_busy)."""
+    from bang_tpu_torch.utils.config import SearchParams
+
+    n, chunk = STREAM_N, STREAM_CHUNK
+    for s in range(0, n, chunk):
+        _streaming_step(f"insert {s}", ixs, "insert", lambda ix: ix.insert(
+            pts[s : s + chunk]), walls)
+    params = SearchParams(L=64, k=K, extra_iters=24, beam_width=2)
+    _streaming_search("pre-churn", ixs, queries, params, walls)
+    victims = rng.choice(n, n // 10, replace=False).astype(np.int32)
+    old_medoid = ixs["eager"].medoid
+    victims[0] = old_medoid
+    victims = np.unique(victims)
+    _streaming_step("delete", ixs, "delete", lambda ix: ix.delete(victims), walls)
+    _streaming_search("after delete", ixs, queries, params, walls)
+    rep = _streaming_step("consolidate", ixs, "consolidate",
+                          lambda ix: ix.consolidate(batch=chunk), walls)
+    if rep["eager"] != rep["captured"] or ixs["captured"].medoid == old_medoid:
+        raise AssertionError(f"captured streaming: repaired {rep}, medoid "
+                             f"{old_medoid} -> {ixs['captured'].medoid}")
+    _streaming_search("after consolidate (medoid re-elected)", ixs, queries, params,
+                      walls)
+    back = victims[:chunk]
+    ids = _streaming_step("re-insert", ixs, "insert", lambda ix: ix.insert(pts[back]),
+                          walls)["captured"]
+    if set(ids.tolist()) - set(victims.tolist()):
+        raise AssertionError("captured streaming: re-inserted outside the freed slots")
+    _streaming_search("after re-insert", ixs, queries, params, walls)
+    more = victims[chunk : 3 * chunk]  # into freed slots: the first captures the key
+    _streaming_step("insert (capture)", ixs, "insert", lambda ix: ix.insert(
+        pts[more[:chunk]]), walls)
+    prof = {kind: (_profiled_busy(lambda ix=ix: ix.insert(pts[more[chunk:]])),
+                   _profiled_busy(lambda ix=ix: ix.search(queries, params)))
+            for kind, ix in ixs.items()}
+    _same_states("the profiled inserts", ixs)
+    inserts = n + len(back) + chunk
+    text = {kind: ", ".join(
+        f"{what} {sum(v):.3f} s" + (f" ({len(v)} calls)" if len(v) > 1 else "")
+        for what, v in w.items()) for kind, w in walls.items()}
+    log(f"captured streaming N={n} R={STREAM_R} inserts of {chunk}: states identical "
+        f"after every insert, the delete, the consolidate ({rep['captured']} rows "
+        f"repaired, medoid {old_medoid} -> {ixs['captured'].medoid}) and the re-insert; "
+        f"search ids and distances identical before the churn and after each step; "
+        f"inserts/s eager {inserts / sum(walls['eager']['insert']):.1f}, captured "
+        f"{inserts / sum(walls['captured']['insert']):.1f}; eager: {text['eager']}; "
+        f"captured: {text['captured']}")
+    for kind, (ins, srch) in prof.items():
+        log(f"captured streaming, {kind}: one insert of {chunk} {_busy_text(ins)}; one "
+            f"search of {STREAM_Q} {_busy_text(srch)}")
+
+
+def phase_captured_loops(dev):
+    """Phase 19: two of the three loops captured in this PR against their
+    eager plain versions on the card, the Vamana build and the streaming
+    index (the third, the chunk-sharded base step, in phase 14, where its
+    searcher is built). No kernel launches."""
+    t = {}
+    for name, fn in (("build", lambda: _captured_build(dev)),
+                     ("streaming", lambda: _captured_streaming(dev))):
+        t0 = time.perf_counter()
+        fn()
+        t[name] = time.perf_counter() - t0
+    log("phase 19 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()))
 
 
 def _against_exact(what, exact_runs, bloom_runs):
@@ -1836,11 +2182,17 @@ def _merge_alone(si, queries, params, dev):
 
 
 def _base_tp_rows(prefix, dev, entry_mode, single):
-    """ShardedBaseSearcher on a (1, SHARDS) mesh over the bundle, at each
-    L of TP_BASE_L with 8 sub-batches: recall, steps, wall, stage ms, peak;
-    ids against the single-card base's at the same L (`single`: L -> ids).
-    Returns (rows, K1 launches expected: SHARDS per step, plus SHARDS per
-    sub-batch for the sampled entries)."""
+    """ShardedBaseSearcher on a (1, SHARDS) mesh of one card over the
+    bundle (captured: every shard is mesh.home), beside one on the eager
+    step (`captured` False), at each L of TP_BASE_L with 8 sub-batches: the
+    key's first call (the eager step, then the capture), then calls in the
+    order eager, captured, captured, eager: ids, distances, steps, readback
+    waits and K1 launches (SHARDS a step, plus SHARDS a sub-batch for
+    sampled entries, as the kernel counts them on the card) identical;
+    the captured call's recall, steps, wall, stage ms and peak; its ids
+    against the single-card base's at the same L (`single`: L -> ids); at
+    the last L with medoid entry one profiled call of each. Returns (rows,
+    K1 launches expected over all those calls)."""
     from bang_tpu_torch.formats.bin_io import load_bin, load_truthset
     from bang_tpu_torch.parallel.base_tp import ShardedBaseSearcher
     from bang_tpu_torch.parallel.sharded import make_mesh
@@ -1849,35 +2201,72 @@ def _base_tp_rows(prefix, dev, entry_mode, single):
 
     queries = load_bin(prefix + "_query.bin", np.uint8)
     gt_ids, gt_dists = load_truthset(prefix + "_gt.bin")
-    tp = ShardedBaseSearcher(prefix, make_mesh(1, SHARDS, [dev] * SHARDS),
-                             n_pipeline_batches=BASE_PIPELINE, mmap=False)
-    tp.timers.enabled = True
+    mesh = make_mesh(1, SHARDS, [dev] * SHARDS)
+    tps = {kind: ShardedBaseSearcher(prefix, mesh, n_pipeline_batches=BASE_PIPELINE,
+                                     mmap=False) for kind in ("eager", "captured")}
+    if not tps["captured"].captured:
+        raise AssertionError("ShardedBaseSearcher on one card: captured is False")
+    tps["eager"].captured = False
+    tps["captured"].timers.enabled = True
     expected, rows = 0, []
     sampled = entry_mode == "sampled"  # one lookup a shard per sub-batch's entries
+
+    def launched(tp):
+        return SHARDS * (tp.last_n_steps + sampled * BASE_PIPELINE)
+
     for L in TP_BASE_L:
         params = SearchParams(L=L, k=K, beam_width=BASE_BEAM, extra_iters=BASE_EXTRA,
                               entry_mode=entry_mode)
-        tp.search(queries[: Q // BASE_PIPELINE], params)  # warm-up: one sub-batch
-        expected += SHARDS * (tp.last_n_steps + sampled * BASE_PIPELINE)
-        (ids, dists), wall, peak = _timed(lambda: tp.search(queries, params))
-        expected += SHARDS * (tp.last_n_steps + sampled * BASE_PIPELINE)
+        t0 = time.perf_counter()
+        tps["captured"].search(queries, params)  # the key's first call
+        first = time.perf_counter() - t0
+        expected += launched(tps["captured"])
+        runs = {"eager": [], "captured": []}
+        for kind in ("eager", "captured", "captured", "eager"):
+            runs[kind].append(_base_call(tps[kind], queries, params))
+            expected += launched(tps[kind])
+        e, c = runs["eager"][0], runs["captured"][0]
+        label = f"sharded base {entry_mode} L={L}"
+        for i in range(2):
+            _same_run(label, runs["eager"][i], runs["captured"][i],
+                      ("ids", "dists", "steps", "d2h", "launches"))
+        want = SHARDS * (c["steps"] + sampled * BASE_PIPELINE)
+        if c["launches"] != {"pq_lookup": want}:
+            raise AssertionError(f"captured {label}: launches {c['launches']}, expected "
+                                 f"pq_lookup {want}")
+        ids = c["ids"]
         agree = float((ids == single[L]).mean())
         row = {"L": L, "recall": calculate_recall(gt_ids, ids, K, gt_dists),
-               "steps": tp.last_n_steps, "agree": agree, "wall_s": wall,
-               "peak_gb": peak, "stages": dict(tp.timers.ms)}
-        log(f"sharded base {entry_mode} L={L}: recall@10 {row['recall']:.2f}, steps "
-            f"{row['steps']}, ids equal to the single-card base's on {agree:.2%} of "
-            f"slots, wall {wall:.4f} s (qps {Q / wall:.1f}), peak {peak:.2f} GB; stage "
-            "ms " + ", ".join(f"{k} {v:.3f}" for k, v in row["stages"].items()))
+               "steps": c["steps"], "agree": agree, "wall_s": c["wall_s"],
+               "peak_gb": c["peak_gb"], "stages": dict(tps["captured"].timers.ms)}
+        walls = {k: " / ".join(f"{r['wall_s']:.4f}" for r in v) for k, v in runs.items()}
+        pools = sum(sb.graph_bytes for sb in tps["captured"]._subs) / 1e9
+        log(f"{label}: recall@10 {row['recall']:.2f}, steps {row['steps']}, ids equal to "
+            f"the single-card base's on {agree:.2%} of slots, peak {c['peak_gb']:.2f} GB; "
+            f"captured against the eager step: ids, distances, steps, readback waits "
+            f"({c['d2h']}) and launches {c['launches']} ({SHARDS} a step) identical; walls "
+            f"eager {walls['eager']} s, captured {walls['captured']} s (qps "
+            f"{Q / c['wall_s']:.1f}); host waits a call eager {e['waits']}, captured "
+            f"{c['waits']}; graph pools {pools:.3f} GB; the key's first call (eager step, "
+            f"then the capture) {first:.3f} s; captured stage ms " + ", ".join(
+                f"{k} {v:.3f}" for k, v in row["stages"].items()))
         if agree < 0.98:
-            raise AssertionError(f"sharded base {entry_mode} L={L}: ids agree with the "
-                                 f"single-card base on {agree:.2%} < 98%")
+            raise AssertionError(f"{label}: ids agree with the single-card base on "
+                                 f"{agree:.2%} < 98%")
+        if L == TP_BASE_L[-1] and not sampled:
+            prof = {}
+            for kind, tp in tps.items():
+                prof[kind] = _profiled_busy(lambda tp=tp: tp.search(queries, params))
+                expected += launched(tp)
+            log(f"{label}: eager {_busy_text(prof['eager'])}; captured "
+                f"{_busy_text(prof['captured'])}")
         rows.append(row)
     _best(rows, f"sharded base {entry_mode}")
+    tp = tps["captured"]
     codes_mb = sum(c.numel() for c in tp.codes_sharded) / 1e6
     log(f"sharded base: codes {codes_mb:.1f} MB in {SHARDS} chunk slices of "
         f"{tp.codes_sharded[0].shape[1]} chunks")
-    del tp
+    del tps, tp
     torch.cuda.empty_cache()
     return rows, expected
 
@@ -2481,6 +2870,10 @@ def search_phases(dev, totals, kern, builds):
                                            "exact_frontier"},
                 lambda: phase_captured(prefix, dev), totals)
         log(f"phase 18 (captured against eager) {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        counted("captured build and streaming", set(),
+                lambda: phase_captured_loops(dev), totals)
+        log(f"phase 19 (captured loops) {time.perf_counter() - t0:.1f}s")
         phase_bloom(prefix, dev, totals)
         phase_warmup_serving(prefix, dev, totals)
         best_s = phase_sharded(prefix, dev, totals, kern, base_rows)
