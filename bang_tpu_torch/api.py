@@ -73,7 +73,8 @@ class BANGSearch:
     def bang_load(self, index_prefix: str, mmap: bool | None = None,
                   n_pipeline_batches: int | None = None,
                   fused_frontier: bool | None = None,
-                  neighbor_vectors: bool | None = None) -> bool:
+                  neighbor_vectors: bool | None = None,
+                  neighbor_codes: bool | None = None) -> bool:
         """Load the index files for the configured variant.
 
         base: the packed graph stays on the host, memory-mapped (mmap=None
@@ -86,13 +87,16 @@ class BANGSearch:
         None picks it when it applies and fits
         models/index.FUSED_LAYOUT_BUDGET; False forces the scattered layout.
         neighbor_vectors=True (exactdistance only) builds the nbr_vecs
-        layout. base has no device layout and refuses both."""
+        layout; neighbor_codes=True (inmemory only) the neighbor-aligned
+        codes (models/index.py). base has no device layout and refuses
+        the three."""
         log_message(f"bang_load({index_prefix}) variant={self.variant} "
                     f"device={self.device}")
         if self.variant == "base":
-            if fused_frontier is not None or neighbor_vectors is not None:
-                raise ValueError("fused_frontier and neighbor_vectors are layouts of "
-                                 "the HBM variants; base keeps its graph on the host")
+            if (fused_frontier, neighbor_vectors, neighbor_codes) != (None,) * 3:
+                raise ValueError("fused_frontier, neighbor_vectors and neighbor_codes "
+                                 "are layouts of the HBM variants; base keeps its "
+                                 "graph on the host")
             from bang_tpu_torch.models.base import BaseVariantSearcher
 
             self._searcher = BaseVariantSearcher(
@@ -107,6 +111,7 @@ class BANGSearch:
         self._index = device_index_from_files(
             index_prefix, self.device, variant=self.variant,
             fused_frontier=fused_frontier, neighbor_vectors=neighbor_vectors,
+            neighbor_codes=neighbor_codes,
         )
         return True
 

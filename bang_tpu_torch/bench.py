@@ -340,9 +340,9 @@ def _traversal_gather_bytes_per_iter(index, variant, q, beam):
     """Least bytes the traversal GATHERS per iteration (bench.py:469): the
     frontier rows and the packed PQ tables, not the worklist's or sort's
     traffic. Over the device time it gives the gather rate, against the
-    H100's 3.35 TB/s. Fused and scattered layouts of both variants, and the
-    exact variant's nbr_vecs; the TPU layouts nbr_codes and adj_planes are
-    not ported."""
+    H100's 3.35 TB/s. Every layout of both variants: fused and scattered,
+    the exact variant's nbr_vecs, and the in-memory neighbor-aligned codes
+    with their byte-plane adjacency (bench.py:490-494)."""
     if variant == "exactdistance":
         if index.fused_vec_rows is not None:
             return q * beam * index.fused_vec_rows.shape[1]
@@ -357,6 +357,11 @@ def _traversal_gather_bytes_per_iter(index, variant, q, beam):
         tables = q * m * 512  # packed bf16-pair tables stream per lookup
         if index.fused_rows is not None:
             return q * beam * index.fused_rows.shape[1] + tables
+        if index.nbr_codes is not None:
+            # adjacency rows are byte-plane u8 [N, 4R] in this layout
+            r = (index.adj_planes.shape[1] // 4 if index.adj_planes is not None
+                 else index.adj.shape[1])
+            return q * beam * (index.nbr_codes.shape[1] + r * 4) + tables
         r = index.adj.shape[1]
         return q * beam * r * (4 + m) + tables
     return None

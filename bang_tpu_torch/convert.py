@@ -3,11 +3,12 @@
 `index_from_jax` reads the leaves of a `bang_tpu.models.index.DeviceIndex`
 as numpy arrays (it needs nothing of JAX itself) and builds the port's
 `DeviceIndex` on `device`, for an in-memory (PQ) index or an exact-distance
-one (no codebook). Where the JAX index holds a TPU-only layout — byte-plane
-adjacency (`adj_planes`) next to neighbor-aligned codes (`nbr_codes`), or
-fused PQ or exact rows without an adjacency table — the [N, R] neighbor
-ids are decoded back out of it, and the port's own layout is built from
-them with the same auto-selection as loading the files.
+one (no codebook). Where the JAX index holds no [N, R] int32 table —
+byte-plane adjacency (`adj_planes`) next to neighbor-aligned codes
+(`nbr_codes`), or fused PQ or exact rows — the neighbor ids are decoded
+back out of it, and the port's layout is built from them: the one asked
+for (`fused_frontier`, `neighbor_codes`, `neighbor_vectors`), else the
+same auto-selection as loading the files.
 
 `sharded_index_from_jax` carries a JAX `parallel.partition.ShardedIndex`
 (numpy arrays) over to the port's ShardedIndex, so that both packages
@@ -68,14 +69,17 @@ def adjacency_of(jax_index) -> np.ndarray:
 
 
 def index_from_jax(jax_index, device, fused_frontier: bool | None = None,
-                   neighbor_vectors: bool | None = None) -> DeviceIndex:
+                   neighbor_vectors: bool | None = None,
+                   neighbor_codes: bool | None = None) -> DeviceIndex:
     """Port-side DeviceIndex on `device` from a JAX in-memory or
     exact-distance DeviceIndex (the latter has no codebook).
-    fused_frontier and neighbor_vectors are those of
+    fused_frontier, neighbor_vectors and neighbor_codes are those of
     models/index.device_index_from_files."""
     if jax_index.vectors is None:
         raise ValueError("index_from_jax needs the vectors (exact distances)")
     if jax_index.codebook is None:
+        if neighbor_codes:
+            raise ValueError("neighbor_codes is a layout of the inmemory variant")
         return assemble_exact_index(
             adjacency_of(jax_index), np.asarray(jax_index.vectors),
             jax_index.medoid, device, fused_frontier, neighbor_vectors,
@@ -93,22 +97,18 @@ def index_from_jax(jax_index, device, fused_frontier: bool | None = None,
     return assemble_device_index(
         adjacency_of(jax_index), np.asarray(jax_index.vectors),
         np.asarray(jax_index.codes), codebook, jax_index.medoid, device,
-        fused_frontier,
+        fused_frontier, neighbor_codes,
     )
 
 
 def sharded_index_from_jax(jax_si, device):
     """Port-side parallel.partition.ShardedIndex on `device` from a JAX
     ShardedIndex: the same graphs, vectors, codes, codebook, medoids, id
-    bases and fused rows (the two packages' rows are byte-identical). A
-    JAX index holding `nbr_codes`, a TPU layout the port leaves out,
-    raises."""
+    bases, fused rows and neighbor-aligned code rows (the two packages'
+    tables are byte-identical)."""
     from bang_tpu_torch.device import resolve_device
     from bang_tpu_torch.parallel.partition import ShardedIndex
 
-    if jax_si.nbr_codes is not None:
-        raise ValueError("the JAX index holds nbr_codes, a TPU layout the port "
-                         "leaves out: build it without neighbor_codes")
     dev = resolve_device(device)
 
     def tensor(x):
@@ -126,4 +126,5 @@ def sharded_index_from_jax(jax_si, device):
         medoids=np.asarray(jax_si.medoids, np.int32),
         id_base=np.asarray(jax_si.id_base, np.int32),
         fused_rows=tensor(jax_si.fused_rows),
+        nbr_codes=tensor(jax_si.nbr_codes),
     )

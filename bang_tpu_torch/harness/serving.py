@@ -28,7 +28,10 @@ from bang_tpu_torch.utils.config import SearchParams
 class SearchServer:
     """Fixed-batch-shape search server over a BANGSearch engine on
     `device`. A request's latency is its wall time through `bang_query`,
-    which returns host arrays, so it holds the card's work."""
+    which returns host arrays, so it holds the card's work. `load` are
+    keyword arguments of `bang_load`: the HBM variants' layout
+    (`fused_frontier`, `neighbor_codes`, `neighbor_vectors`; by default the
+    auto-select, as the JAX server's load)."""
 
     def __init__(
         self,
@@ -37,12 +40,13 @@ class SearchServer:
         batch_size: int = 1024,
         params: SearchParams | None = None,
         device="cuda",
+        **load,
     ):
         self.batch_size = batch_size
         self.params = params or SearchParams()
         self.engine = BANGSearch(variant=variant, dist_func=self.params.dist_func,
                                  device=device)
-        self.engine.bang_load(index_prefix)
+        self.engine.bang_load(index_prefix, **load)
         extra = dataclasses.asdict(self.params)
         for consumed in ("L", "k", "dist_func"):
             extra.pop(consumed)
@@ -104,7 +108,8 @@ def measure_device_batch_latency(
     variant: str = "inmemory",
     n_reps: int = 10,
 ) -> float:
-    """ms per search of one batch on the index's device: `n_reps` searches
+    """ms per search of one batch on the index's device, in any of its
+    layouts (models/index.py): `n_reps` searches
     between two CUDA events after a warm-up search (the host clock on a CPU
     index). On a CUDA index each search is one launch of its captured graph
     (models/compiled.py; the warm-up runs the eager loop and captures), so
@@ -140,6 +145,7 @@ def measure_base_device_step_ms(
     beam = params.beam_width
     q = queries.shape[0]
     queries_f32 = torch.as_tensor(np.asarray(queries, np.float32), device=dev)
+    searcher.pq_impl = params.pq_impl
     distance_fn = searcher._prepare_tables(queries_f32)
     m = searcher.meta
     rng = np.random.default_rng(0)

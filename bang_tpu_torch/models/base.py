@@ -56,7 +56,12 @@ from bang_tpu_torch.models import compiled
 from bang_tpu_torch.models.traversal import check_params, make_pq_distance_fn, slot_index
 from bang_tpu_torch.native import gather_parents
 from bang_tpu_torch.ops.bloom import bloom_insert, bloom_positions, bloom_query, new_bloom
-from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_parents_beam
+from bang_tpu_torch.ops.merge import (
+    init_worklist,
+    merge_impl,
+    merge_worklist,
+    select_parents_beam,
+)
 from bang_tpu_torch.ops.pq import prepare_pq_codebook
 from bang_tpu_torch.ops.visited import exact_new_mask, first_occurrence_mask_blocks
 from bang_tpu_torch.utils.config import SearchParams
@@ -362,6 +367,8 @@ class BaseVariantSearcher:
     # capture each sub-batch's prologue and step on the card (the
     # chunk-sharded subclass sets False when its step spans several devices)
     captured = True
+    # SearchParams.pq_impl of the search under way (`_prepare_tables`)
+    pq_impl = "auto"
 
     def drop_graphs(self) -> None:
         """Free the sub-batches, their graphs and their pools."""
@@ -370,10 +377,17 @@ class BaseVariantSearcher:
     def _prepare_tables(self, sub_queries):
         """A sub-batch's PQ tables, in whatever form `_run_step` and
         `_select_entries` take them: here the distance function of
-        traversal.make_pq_distance_fn (on the card the tables are packed
-        once and K1 reads them for codes[nbrs]; on the CPU the f32 tables
-        and ops/pq.pq_lookup, as JAX's `pq_impl="auto"`)."""
-        return make_pq_distance_fn(sub_queries, self.codebook, self.codes)
+        traversal.make_pq_distance_fn for `self.pq_impl` (`search` sets it
+        from SearchParams). "auto": on the card
+        the tables are packed once and K1 reads them for codes[nbrs], on
+        the CPU the f32 tables and ops/pq.pq_lookup; "pallas": K1 over the
+        packed tables (its plain version on the CPU) and "xla": the f32
+        lookup, on either device, as JAX's `_base_step` and
+        `_prepare_tables` (bang_tpu/models/base.py:149-150,246).
+        "pallas_dma" names the fused rows' in-kernel read, and base has no
+        fused rows (its neighbor ids come from the host): it runs "auto"."""
+        impl = "auto" if self.pq_impl == "pallas_dma" else self.pq_impl
+        return make_pq_distance_fn(sub_queries, self.codebook, self.codes, impl=impl)
 
     def _run_step(self, state, nbrs, parent_vecs, queries_f32, tables, beam):
         """One device step: the PQ lookup, then the shared step core."""
@@ -422,6 +436,7 @@ class BaseVariantSearcher:
         search with n_pipeline_batches=1 taking longer."""
         check_params(params)
         assert_exact_float32()
+        self.pq_impl = params.pq_impl
         queries = np.asarray(queries, dtype=np.float32)
         self.timers.ms.clear()
         t_wall = time.perf_counter()
@@ -432,7 +447,7 @@ class BaseVariantSearcher:
         beam = params.beam_width
         r = self.meta.degree
         current = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
-        key = (bounds, params)
+        key = (bounds, params, merge_impl())  # the merge form a capture holds
         if key != self._subs_key:
             self._subs = [_SubBatch(self, bounds[i + 1] - bounds[i], params)
                           for i in range(nb)]

@@ -73,9 +73,11 @@ temporaries back to the allocator's common cache after each call;
 `part_bytes` records what each part's capture added to it.
 
 Graph cache (`graph_cache(owner)`): on the DeviceIndex, the ShardedIndex or
-the BaseVariantSearcher, keyed by the search (variant, layout, the query
-shape, SearchParams: L, beam, max_iters, visited_mode, entry_mode, k,
-rerank, ...), one captured loop per walk slot. It holds one key at a time,
+the BaseVariantSearcher, keyed by the search (variant, the layout tensors
+the index holds (models/index.layout_of), the query shape, SearchParams:
+L, beam, max_iters, visited_mode, entry_mode, k, rerank, pq_impl, ...)
+and the merge form BANG_MERGE_IMPL names at the call (ops/merge.
+merge_impl), one captured loop per walk slot. It holds one key at a time,
 so an L sweep does not pile up pools; `drop_graphs(owner)` frees them
 (`BANGSearch.bang_set_searchparams` with new parameters, `bang_unload`,
 `models/index.free_device_index`). A Vamana build keeps one GraphCache of
@@ -93,6 +95,7 @@ import torch
 
 from bang_tpu_torch.models.traversal import SearchStats, go_flag, step_, traverse
 from bang_tpu_torch.ops import _build
+from bang_tpu_torch.ops.merge import merge_impl
 
 
 class GraphCache:
@@ -106,7 +109,10 @@ class GraphCache:
 
     def get(self, key, slot):
         """The loop of `slot` under `key`, or None; a new key drops every
-        loop of the old one first."""
+        loop of the old one first. The merge form the environment names
+        now is part of every key: a loop captured with one form is never
+        launched under the other."""
+        key = (key, merge_impl())
         if key != self.key:
             self.clear()
             self.key = key

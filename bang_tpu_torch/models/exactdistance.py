@@ -18,7 +18,7 @@ import torch
 from bang_tpu_torch.device import assert_exact_float32
 from bang_tpu_torch.models import compiled
 from bang_tpu_torch.models.entry import entry_points
-from bang_tpu_torch.models.index import DeviceIndex
+from bang_tpu_torch.models.index import DeviceIndex, layout_of
 from bang_tpu_torch.models.traversal import (
     SearchStats,
     check_params,
@@ -38,9 +38,21 @@ def prepare_exact(index: DeviceIndex, queries, params: SearchParams):
     both of its values and both compute in full float32 (TF32 stays off,
     device.py): "default" is a TPU matrix-unit setting (bf16 passes) that
     the bench passes for speed; on the card u8 distances are exact either
-    way."""
+    way.
+
+    pq_impl names a PQ lookup, which this variant has none of, so "pallas"
+    and "xla" leave the fetch as "auto" does, as in the JAX package; there
+    "pallas_dma" selects the in-kernel read of the fused exact rows, which
+    is what K3 does here, so it needs those rows and raises without them,
+    with JAX's message."""
     check_params(params)
     assert_exact_float32()
+    if params.pq_impl == "pallas_dma" and index.fused_vec_rows is None:
+        raise ValueError(
+            "dma_frontier=True requires fused exact-frontier rows "
+            "(pack_exact_frontier_rows); this index has none — build with "
+            "fused_exact_frontier=True or use the default path"
+        )
     dev = index.vectors.device
     queries_f32 = torch.as_tensor(queries, device=dev).float()
     q = queries_f32.shape[0]
@@ -77,7 +89,8 @@ def search_exact(index: DeviceIndex, queries, params: SearchParams):
         return search_exact_eager(index, queries, params)
     q = torch.as_tensor(queries)
     (ids, dists), stats = compiled.search(
-        index, ("exactdistance", tuple(q.shape), params), q, dev, params.max_iters,
+        index, ("exactdistance", layout_of(index), tuple(q.shape), params), q, dev,
+        params.max_iters,
         lambda qs: prepare_exact(index, qs, params),
         lambda _, final: finish_exact(final, params))
     return ids, dists, stats

@@ -11,6 +11,12 @@ in-memory (PQ traversal, exact re-rank)
       neighbors' ids as byte-planes plus their PQ codes chunk-major
       (ops/pq_kernels.pack_frontier_rows). One row read per parent yields
       candidate ids and PQ distances (kernel K2). No adjacency table.
+  neighbor-aligned codes (`neighbor_codes=True`)  `nbr_codes` [N, R*m] u8
+      + `adj_planes` [N, 4R] u8 + `codes` — per node its neighbors' code
+      rows, self-padding included, so one R*m-byte row read a parent
+      gives every candidate's codes (kernel K1), and the adjacency as byte
+      planes (ops/adjacency.PlaneAdjacency), with no int32 table. The
+      scattered `codes` stay for the entry seed, which has no parent.
   scattered codes       `adj` [N, R] int32 + `codes` [N, m] u8 — the
       traversal gathers the adjacency row, then each candidate's m-byte
       code row, then runs kernel K1. Costs R x less memory; the only layout
@@ -36,8 +42,15 @@ fused row gives everything nbr_vecs gives plus the ids and the norms, in
 one read; the port picks it whenever the vectors are u8 and the rows fit
 FUSED_LAYOUT_BUDGET.
 
-The JAX package's other layouts (`nbr_codes`, `adj_planes`, the DMA-tiled
-rows) are TPU workarounds and are not ported.
+In-memory auto-select (`neighbor_codes=None`, `fused_frontier=None`): the
+fused rows when they fit FUSED_LAYOUT_BUDGET, else the scattered codes.
+The JAX package falls back to the neighbor-aligned codes when R is
+outside {32, 64k}, where Mosaic cannot slice its fused rows; the port's
+fused rows take any R, so that fallback never arises here and the
+neighbor-aligned layout is built only when asked for. JAX's DMA-tiled
+fused rows (`fused_frontier="dma"`, [N, s, 128] with an 8-sublane pad) are
+the only rows its in-kernel DMA accepts; K2 reads each parent's flat row
+in place already, so "dma" builds the flat fused rows.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ from bang_tpu_torch.device import resolve_device
 from bang_tpu_torch.formats.graph import GraphIndex, load_graph_index
 from bang_tpu_torch.formats.pq import PQData, load_pq
 from bang_tpu_torch.models import compiled
+from bang_tpu_torch.ops.adjacency import pack_adj_planes
 from bang_tpu_torch.ops.l2 import pack_exact_frontier_rows
 from bang_tpu_torch.ops.pq import PQCodebook, prepare_pq_codebook
 from bang_tpu_torch.ops.pq_kernels import pack_frontier_rows
@@ -88,9 +102,12 @@ class DeviceIndex:
     nbr_vecs: Optional[torch.Tensor] = None  # [N, R, D] — exact nbr_vecs layout
     nbr_vec_norms: Optional[torch.Tensor] = None  # [N, R] f32
     fused_vec_rows: Optional[torch.Tensor] = None  # [N, R*(8+D)] u8 — fused exact
+    nbr_codes: Optional[torch.Tensor] = None  # [N, R*m] u8 — neighbor-aligned codes
+    adj_planes: Optional[torch.Tensor] = None  # [N, 4R] u8 — byte-plane adjacency
 
     def to(self, device) -> "DeviceIndex":
-        """This index on `device`: a copy of every tensor, or the index
+        """This index on `device`: a copy of every tensor (every layout's,
+        the neighbor-aligned codes and planes included), or the index
         itself when it is there already (parallel/sharded.py places one
         replica per distinct device)."""
         dev = torch.device(device)
@@ -127,6 +144,17 @@ def fused_layout_fits(n: int, r: int, m: int) -> bool:
     return n * r * (4 + m) <= FUSED_LAYOUT_BUDGET
 
 
+LAYOUT_FIELDS = ("fused_rows", "nbr_codes", "adj_planes", "adj", "fused_vec_rows",
+                 "nbr_vecs")
+
+
+def layout_of(index) -> tuple:
+    """The layout tensors `index` holds, by name: part of a captured
+    search's key (models/compiled.py), so that two layouts of one index
+    never share a graph."""
+    return tuple(f for f in LAYOUT_FIELDS if getattr(index, f, None) is not None)
+
+
 def fused_exact_layout_fits(n: int, r: int, d: int) -> bool:
     """Whether the fused exact rows of an (N, R, D) u8 index fit
     FUSED_LAYOUT_BUDGET."""
@@ -141,6 +169,13 @@ def squared_norms_host(vectors: np.ndarray, block: int = 1_000_000) -> np.ndarra
         v = vectors[s : s + block].astype(np.float64)
         out[s : s + block] = (v * v).sum(-1).astype(np.float32)
     return out
+
+
+def neighbor_code_rows(adj_blk: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """[B, R*m] u8: each node's neighbors' code rows, flat, for the
+    adjacency rows `adj_blk` [B, R] (self-padding slots give the node's own
+    codes, as JAX's `codes[adj]`)."""
+    return codes[adj_blk.long()].reshape(adj_blk.shape[0], -1)
 
 
 def _pack_blocks(adj: np.ndarray, width: int, pack, dev) -> torch.Tensor:
@@ -161,22 +196,38 @@ def assemble_device_index(
     codebook: PQCodebook,
     medoid: int,
     device,
-    fused_frontier: bool | None = None,
+    fused_frontier: bool | str | None = None,
+    neighbor_codes: bool | None = None,
 ) -> DeviceIndex:
     """Upload host arrays and build the in-memory layout on `device`.
 
-    fused_frontier: True / False force the layout; None picks fused rows
-    when they fit FUSED_LAYOUT_BUDGET."""
+    neighbor_codes: True builds the neighbor-aligned codes (`nbr_codes`,
+    `adj_planes`; no int32 table); False, the JAX meaning, asks for no
+    neighbor-aligned codes and no auto-selected fused rows (the scattered
+    codes, unless fused_frontier is True); None keeps the auto-select.
+    fused_frontier: True (or JAX's "dma") / False force the fused rows or
+    not; None picks them when they fit FUSED_LAYOUT_BUDGET. Both tables
+    are built on the device in row blocks (`_pack_blocks`): only [B, R]
+    adjacency blocks cross the host link, and the [B, R, m] gathered codes
+    are the only transient."""
     dev = resolve_device(device)
     n, r = adj.shape
     m = codes.shape[1]
+    if fused_frontier == "dma":
+        fused_frontier = True  # K2 reads each parent's flat row in place
+    if neighbor_codes and fused_frontier:
+        raise ValueError("fused_frontier and neighbor_codes pick two layouts; "
+                         "ask for one")
     if fused_frontier is None:
-        fused_frontier = fused_layout_fits(n, r, m)
+        fused_frontier = neighbor_codes is None and fused_layout_fits(n, r, m)
     codes_t = torch.tensor(np.asarray(codes, np.uint8), device=dev)
-    adj_t = fused = None
+    adj_t = fused = nbr = planes = None
     if fused_frontier:
         fused = _pack_blocks(adj, r * (4 + m),
                              lambda blk: pack_frontier_rows(blk, codes_t), dev)
+    elif neighbor_codes:
+        nbr = _pack_blocks(adj, r * m, lambda blk: neighbor_code_rows(blk, codes_t), dev)
+        planes = _pack_blocks(adj, 4 * r, pack_adj_planes, dev)
     else:
         adj_t = torch.tensor(np.asarray(adj, np.int32), device=dev)
     return DeviceIndex(
@@ -189,6 +240,8 @@ def assemble_device_index(
         medoid=int(medoid),
         n=int(n),
         dim=int(vectors.shape[1]),
+        nbr_codes=nbr,
+        adj_planes=planes,
     )
 
 
@@ -240,16 +293,18 @@ def assemble_exact_index(
 
 
 def build_device_index(
-    graph: GraphIndex, pq: PQData, device, fused_frontier: bool | None = None
+    graph: GraphIndex, pq: PQData, device, fused_frontier: bool | str | None = None,
+    neighbor_codes: bool | None = None,
 ) -> DeviceIndex:
     """Assemble an in-memory DeviceIndex from host-side containers
-    (GraphIndex, PQData with codes) on `device`."""
+    (GraphIndex, PQData with codes) on `device`; fused_frontier and
+    neighbor_codes as in assemble_device_index."""
     if pq.codes is None:
         raise ValueError("the in-memory index needs the PQ codes")
     codebook = prepare_pq_codebook(pq.pivots, pq.centroid, pq.chunk_offsets, device)
     return assemble_device_index(
         graph.adj, graph.vectors, pq.codes, codebook, graph.medoid, device,
-        fused_frontier,
+        fused_frontier, neighbor_codes,
     )
 
 
@@ -257,18 +312,23 @@ def device_index_from_files(
     prefix: str,
     device,
     variant: str = "inmemory",
-    fused_frontier: bool | None = None,
+    fused_frontier: bool | str | None = None,
     neighbor_vectors: bool | None = None,
+    neighbor_codes: bool | None = None,
 ) -> DeviceIndex:
     """Load an index bundle from `<prefix>_*` files onto `device`.
 
     fused_frontier picks the fused layout of the variant: None auto-selects
     it (see above), False forces the scattered layout. neighbor_vectors
-    (exactdistance only): True builds the nbr_vecs layout."""
+    (exactdistance only): True builds the nbr_vecs layout. neighbor_codes
+    (inmemory only): True builds the neighbor-aligned codes, False the
+    scattered codes (assemble_device_index)."""
     if variant == "base":
         raise ValueError("variant 'base' has no device index: its graph stays on "
                          "the host (models/base.BaseVariantSearcher)")
     if variant == "exactdistance":
+        if neighbor_codes:
+            raise ValueError("neighbor_codes is a layout of the inmemory variant")
         graph = load_graph_index(prefix)
         return assemble_exact_index(graph.adj, graph.vectors, graph.medoid,
                                     device, fused_frontier, neighbor_vectors)
@@ -277,5 +337,6 @@ def device_index_from_files(
     if neighbor_vectors:
         raise ValueError("neighbor_vectors is a layout of the exactdistance variant")
     return build_device_index(
-        load_graph_index(prefix), load_pq(prefix), device, fused_frontier
+        load_graph_index(prefix), load_pq(prefix), device, fused_frontier,
+        neighbor_codes,
     )

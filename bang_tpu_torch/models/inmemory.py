@@ -19,7 +19,7 @@ import torch
 from bang_tpu_torch.device import assert_exact_float32
 from bang_tpu_torch.models import compiled
 from bang_tpu_torch.models.entry import entry_points
-from bang_tpu_torch.models.index import DeviceIndex
+from bang_tpu_torch.models.index import DeviceIndex, layout_of
 from bang_tpu_torch.models.traversal import (
     SearchStats,
     check_params,
@@ -28,6 +28,7 @@ from bang_tpu_torch.models.traversal import (
     start_traversal,
     traverse,
 )
+from bang_tpu_torch.ops.adjacency import PlaneAdjacency
 from bang_tpu_torch.utils.config import SearchParams
 
 
@@ -36,18 +37,28 @@ def prepare_inmemory(index: DeviceIndex, queries, params: SearchParams):
     the traversal's body and initial state (traversal.start_traversal) and
     the f32 queries that `finish_inmemory` re-ranks against. Callers that
     interleave several searches (parallel/sharded.search_data_parallel)
-    step them with traversal.traverse_together."""
+    step them with traversal.traverse_together.
+
+    The fetch follows the index layout, as JAX's jitted search: the fused
+    rows (no adjacency table), the neighbor-aligned codes with their
+    byte-plane adjacency (PlaneAdjacency), or the scattered codes with the
+    int32 table; params.pq_impl picks the tables and lookups
+    (traversal.make_pq_distance_fn)."""
     check_params(params)
     assert_exact_float32()
     dev = index.vectors.device
     queries_f32 = torch.as_tensor(queries, device=dev).float()
     q = queries_f32.shape[0]
     distance_fn = make_pq_distance_fn(
-        queries_f32, index.codebook, index.codes, fused_rows=index.fused_rows
+        queries_f32, index.codebook, index.codes, fused_rows=index.fused_rows,
+        nbr_codes=index.nbr_codes, impl=params.pq_impl,
     )
+    adj = index.adj
+    if index.adj_planes is not None:
+        adj = PlaneAdjacency(index.adj_planes)
     entry_ids, entry_dists = entry_points(index, queries_f32, params)
     step, state = start_traversal(
-        index.adj, distance_fn, index.medoid, q, params.L, params.max_iters,
+        adj, distance_fn, index.medoid, q, params.L, params.max_iters,
         params.beam_width, dev, entry_ids=entry_ids, entry_dists=entry_dists,
         use_bloom=params.visited_mode == "bloom",
     )
@@ -85,7 +96,8 @@ def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
         return search_inmemory_eager(index, queries, params)
     q = torch.as_tensor(queries)
     (ids, dists), stats = compiled.search(
-        index, ("inmemory", tuple(q.shape), params), q, dev, params.max_iters,
+        index, ("inmemory", layout_of(index), tuple(q.shape), params), q, dev,
+        params.max_iters,
         lambda qs: prepare_inmemory(index, qs, params),
         lambda queries_f32, final: finish_inmemory(index, queries_f32, final,
                                                    params)[:2])

@@ -108,12 +108,8 @@ class SearchStats:
 
 def check_params(params) -> None:
     """Raise on the SearchParams that the port's traversal does not take.
-    Both visited modes are served (SearchParams checks the name)."""
-    if params.pq_impl != "auto":
-        raise ValueError(
-            f"pq_impl={params.pq_impl!r} names a JAX kernel; the port picks "
-            "its kernel from the index layout and the tensors' device"
-        )
+    Both visited modes and the four pq_impl values are served
+    (SearchParams checks their names; make_pq_distance_fn maps pq_impl)."""
     # both bits are served (api.BANGSearch): ENABLE_GPU_STATS turns base's
     # stage timers on and gives the HBM variants last_stats;
     # ENABLE_CACHE_WARMUP runs utils/graph_tools.warmup_touch in bang_alloc
@@ -180,15 +176,24 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
     `distance_fn(cand_ids [Q, C], parents [Q, P]) -> [Q, C] f32`. When
     `distance_fn.frontier_fn(parents) -> (cand_ids, dists)` exists (fused
     rows), one call yields both and `adj` is not read: pass None.
-    `adj`: [N, R] int32 tensor (scattered layout) or None. use_bloom: the
-    visited set is the state's bloom filter, not the exact mask.
+    `adj`: an [N, R] int32 tensor (scattered layout), a callable
+    `parents [Q, P] -> ids [Q, P*R]` with `.r` (ops/adjacency.
+    PlaneAdjacency, the neighbor-aligned layout's byte planes) or None.
+    use_bloom: the visited set is the state's bloom filter, not the exact
+    mask.
 
     The visited list and the bloom filter are written in place (the old
     state does not read them again); the rest of the new state is new
     tensors, which `step_` writes into the old state's buffers."""
     frontier_fn = getattr(distance_fn, "frontier_fn", None)
-    if adj is not None:
+    if callable(adj):
+        r = adj.r
+        fetch_adj = adj
+    elif adj is not None:
         r = adj.shape[1]
+
+        def fetch_adj(parents):
+            return adj[parents.long()].reshape(parents.shape[0], beam * r)
     elif frontier_fn is not None:
         r = distance_fn.r
     else:
@@ -199,7 +204,7 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
         if frontier_fn is not None:
             cand, raw = frontier_fn(state.parents)
         else:
-            cand = adj[state.parents.long()].reshape(q, beam * r)
+            cand = fetch_adj(state.parents)  # [Q, beam*R]
             raw = None
         # repeat_interleave with an int count reads its output size back
         cand_valid = state.parent_valid[:, :, None].expand(q, beam, r).reshape(q, beam * r)
@@ -377,48 +382,83 @@ def make_exact_distance_fn(queries_f32, vectors, nbr_vecs=None,
     return distance_fn
 
 
-def make_pq_distance_fn(queries_f32, codebook, codes, fused_rows=None):
+PQ_IMPLS = ("auto", "pallas", "pallas_dma", "xla")
+
+
+def packs_tables(pq_impl: str, device) -> bool:
+    """Whether the PQ lookups of `pq_impl` on `device` read bf16-pair
+    tables (`pack_tables`; K1 and K2 on the card, their plain versions on
+    the CPU) rather than f32 tables: "auto" on a CUDA device, "pallas" and
+    "pallas_dma" anywhere, "xla" never."""
+    if pq_impl not in PQ_IMPLS:
+        raise ValueError(f"unknown pq_impl {pq_impl!r}")
+    if pq_impl == "auto":
+        return torch.device(device).type == "cuda"
+    return pq_impl != "xla"
+
+
+def make_pq_distance_fn(queries_f32, codebook, codes, fused_rows=None,
+                        nbr_codes=None, impl: str = "auto"):
     """Traversal distance: PQ table lookup (BANG_Base/Inmemory behavior).
     Tables are built once per batch.
 
-    `distance_fn(cand_ids, parents)` gathers each candidate's codes (the
-    scattered layout; the gather stays in torch, as the JAX package's
-    `fetch_codes`) and sums their table entries. With fused_rows [N,
-    R*(4+m)] u8 it also carries `frontier_fn(parents)`, which yields ids and
-    distances from the ungathered rows, and the degree `r`. The device
-    picks the table form, as the JAX package's `impl="auto"` does: on a
-    CUDA device the tables are packed once per batch (`pack_tables`, bf16
-    pairs) and the f32 tables dropped; K1 (`pq_lookup`) reads them for the
-    scattered codes and K2 (`frontier_lookup`) for the fused rows, the two
-    summing the same entries in the same order. On the CPU the f32 tables
-    are read: ops/pq.pq_lookup and `frontier_decode_plain` (JAX's
-    `frontier_decode_xla`), what the JAX package runs there. `seed_fn`
-    gives the shared entry node's distance directly from its reconstructed
-    vector."""
+    `distance_fn(cand_ids, parents)` fetches each candidate's codes and
+    sums their table entries. The fetch follows the layout, as the JAX
+    package's `fetch_codes`: with nbr_codes [N, R*m] u8 (the
+    neighbor-aligned layout) one row a parent, `nbr_codes[parents]` viewed
+    as [Q, P*R, m]; else, and for the entry seed, which has no parents,
+    the scattered `codes[cand_ids]`. With fused_rows [N, R*(4+m)] u8 it
+    also carries `frontier_fn(parents)`, which yields ids and distances
+    from the ungathered rows, and the degree `r`.
+
+    impl is SearchParams.pq_impl, mapped onto the port's routes:
+      "auto"        the device picks, as JAX's "auto" does: on a CUDA
+                    device the tables are packed once per batch
+                    (`pack_tables`, bf16 pairs) and K1 (`pq_lookup`) reads
+                    them for fetched codes, K2 (`frontier_lookup`) for the
+                    fused rows, the two summing the same entries in the
+                    same order; on the CPU the f32 tables, ops/pq.pq_lookup
+                    and `frontier_decode_plain` (JAX's `frontier_decode_xla`).
+      "pallas"      the packed tables on any device: the kernels on the
+                    card, their plain versions on the CPU (what JAX's
+                    interpret mode computes). JAX decodes R=32 rows outside
+                    its lane-rotation kernel's envelope in XLA; K2 takes
+                    every R.
+      "pallas_dma"  "pallas" with K2 on the fused rows, which it reads in
+                    place (JAX's in-kernel DMA frontier); an index without
+                    fused rows raises, with JAX's message.
+      "xla"         the f32 tables and the plain lookups on either device:
+                    an explicit request, never a fallback.
+    `seed_fn` gives the shared entry node's distance directly from its
+    reconstructed vector."""
+    if impl == "pallas_dma" and fused_rows is None:
+        raise ValueError(
+            "pq_impl='pallas_dma' requires fused frontier rows "
+            "(pack_frontier_rows_tiled); this index has none — "
+            "use pq_impl='pallas' or build with fused_frontier=True"
+        )
     m = codebook.num_chunks
     tables = pq_distance_tables(codebook, queries_f32)
-    if queries_f32.device.type == "cuda":
-        packed = pack_tables(tables)
-        del tables  # nothing on the card reads the f32 tables
-
-        def distance_fn(cand_ids, parents=None):
-            return pq_lookup(packed, codes[cand_ids.long()])  # [Q, C, m] gather
-
-        def frontier_fn(parents):
-            return frontier_lookup(packed, fused_rows, parents)
+    if packs_tables(impl, queries_f32.device):
+        tables = pack_tables(tables)  # the f32 tables are not read again
+        lookup, frontier = pq_lookup, frontier_lookup
     else:
+        lookup, frontier = pq_lookup_f32, frontier_decode_plain
 
-        def distance_fn(cand_ids, parents=None):
-            return pq_lookup_f32(tables, codes[cand_ids.long()])
+    def fetch_codes(cand_ids, parents):
+        if nbr_codes is not None and parents is not None:
+            q = cand_ids.shape[0]
+            return nbr_codes[parents.long()].reshape(q, -1, m)  # one row a parent
+        return codes[cand_ids.long()]  # [Q, C, m] scattered gather
 
-        def frontier_fn(parents):
-            return frontier_decode_plain(tables, fused_rows, parents)
+    def distance_fn(cand_ids, parents=None):
+        return lookup(tables, fetch_codes(cand_ids, parents))
 
     def seed_fn(cand_ids, parents=None):
         # same node for all; a [1] index, not a 0-d one, which reads back
         node_codes = codes[cand_ids[0, :1].long()][0].long()
         recon = codebook.piv_chunks[
-            torch.arange(m, device=codes.device), node_codes
+            torch.arange(m, device=node_codes.device), node_codes
         ]  # [m, dmax]
         qc = (queries_f32 - codebook.centroid)[:, codebook.dim_idx]
         qc = qc * codebook.dim_mask  # [Q, m, dmax]
@@ -427,6 +467,10 @@ def make_pq_distance_fn(queries_f32, codebook, codes, fused_rows=None):
     distance_fn.seed_fn = seed_fn
     if fused_rows is not None:
         distance_fn.r = fused_rows.shape[1] // (4 + m)
+
+        def frontier_fn(parents):
+            return frontier(tables, fused_rows, parents)
+
         distance_fn.frontier_fn = frontier_fn
     return distance_fn
 

@@ -45,6 +45,18 @@ def l2_distance_to_candidates(
     return torch.clamp_min(cand_norms - 2.0 * cross + q_norms, 0.0)
 
 
+def decode_row_gather(raw: torch.Tensor, dim: int) -> torch.Tensor:
+    """Undo a u8 bit-view packing of an f32 vector table after a row
+    gather: rows whose last dimension is 4*dim u8 are viewed as dim f32
+    (little-endian, as on the CPU and the card); anything else passes
+    through. The JAX package keeps it as a guard after measuring the
+    packing a dead end on the v5e; no index of the port stores packed
+    vectors, and scripts/exp_decode.py times the two forms on the card."""
+    if raw.dtype == torch.uint8 and raw.shape[-1] == 4 * dim:
+        return raw.contiguous().view(torch.float32)
+    return raw
+
+
 def pack_exact_frontier_rows(adj: torch.Tensor, vectors: torch.Tensor,
                              norms: torch.Tensor) -> torch.Tensor:
     """Fused exact-frontier rows [B, 8R + R*D] u8 for the adjacency rows

@@ -48,6 +48,16 @@ def exact_new_mask_dense(
     return ~(in_wl | in_vis)
 
 
+def first_occurrence_mask(cand_ids: torch.Tensor) -> torch.Tensor:
+    """True where cand_ids[q, j] is the first occurrence in its row: the
+    generic O(C^2) form, the oracle of first_occurrence_mask_blocks (the
+    search path's form), as in the JAX package."""
+    c = cand_ids.shape[1]
+    eq = cand_ids[:, :, None] == cand_ids[:, None, :]  # [Q, C, C]
+    earlier = torch.ones((c, c), dtype=torch.bool, device=cand_ids.device).tril(-1)
+    return ~(eq & earlier[None]).any(-1)
+
+
 def first_occurrence_mask_blocks(cand_ids: torch.Tensor, beam: int) -> torch.Tensor:
     """True where cand_ids[q, j] is the first occurrence in its row, for
     candidates that come as `beam` per-parent blocks of width R.

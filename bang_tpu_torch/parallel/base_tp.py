@@ -13,9 +13,10 @@ worklist merge, the parent selection) is models/base._step_core, run once
 on mesh.home; the data axis, which JAX replicates, is not used.
 
 Each shard's partial lookup runs K1 (ops/pq_kernels.pq_lookup) on its
-packed chunk slice on the card, and the f32 lookup on the CPU: the port's
-`auto`, in place of JAX's `xla`/`pallas` switch; the port takes no
-`pq_impl`. A chunk axis that S does not divide is padded with zero codes
+packed chunk slice when the tables are packed, and the f32 lookup
+otherwise: `pq_impl` picks as in the base searcher (models/traversal.
+packs_tables: "auto" packs on the card, "pallas" everywhere, "xla" never;
+JAX's "pallas_interp" is K1's plain version on CPU tensors). A chunk axis that S does not divide is padded with zero codes
 and zero tables: the padded chunks add 0.
 """
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from bang_tpu_torch.models.base import BaseVariantSearcher, _step_core
+from bang_tpu_torch.models.traversal import packs_tables
 from bang_tpu_torch.ops.pq import pack_tables, pq_distance_tables
 from bang_tpu_torch.parallel.pq_tp import pq_lookup_tp, shard_tables_by_chunk
 from bang_tpu_torch.parallel.sharded import Mesh
@@ -131,13 +133,16 @@ class ShardedBaseSearcher(BaseVariantSearcher):
 
     def _prepare_tables(self, sub_queries):
         """The sub-batch's tables split by chunk, shard s on
-        mesh.devices[0][s]: bf16 pairs (`pack_tables`, read by K1) on the
-        card, f32 on the CPU; padded chunks all zero."""
+        mesh.devices[0][s]: bf16 pairs (`pack_tables`, read by K1) when
+        `self.pq_impl` packs them (on the card by default), else f32; padded
+        chunks all zero. "pallas_dma" runs "auto", as in the base
+        searcher."""
         t = pq_distance_tables(self.codebook, sub_queries)  # [Q, m, 256]
         pad = self._m_padded - t.shape[1]
         if pad:
             t = torch.nn.functional.pad(t, (0, 0, 0, pad))
-        if t.device.type == "cuda":
+        impl = "auto" if self.pq_impl == "pallas_dma" else self.pq_impl
+        if packs_tables(impl, t.device):
             t = pack_tables(t)  # [Q, m, 128] int32
         row = self.mesh.devices[0]
         stacked = shard_tables_by_chunk(t, len(row))

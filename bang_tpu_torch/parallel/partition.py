@@ -10,8 +10,10 @@ per-shard top-k lists are merged (parallel/sharded.search_sharded). Recall
 matches a monolithic index when the per-shard k equals the final k, at the
 cost of S searches of N/S-point graphs.
 
-The JAX index's `nbr_codes` (neighbor-aligned code rows) is a TPU layout
-the port leaves out (models/index.py); asking for it raises.
+Per shard, the in-memory layouts of one device: the scattered codes, the
+fused rows (`fused_frontier`) or the neighbor-aligned code rows
+(`neighbor_codes`: each shard's `codes[adj]`, flat [n_loc, R*m], beside
+its int32 adjacency, as the JAX package stacks them).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from bang_tpu_torch.device import resolve_device
 from bang_tpu_torch.formats import accel, synthetic
 from bang_tpu_torch.formats.pq import PQData
-from bang_tpu_torch.models.index import _pack_blocks
+from bang_tpu_torch.models.index import _pack_blocks, neighbor_code_rows
 from bang_tpu_torch.ops.pq import PQCodebook, prepare_pq_codebook
 from bang_tpu_torch.ops.pq_kernels import pack_frontier_rows
 
@@ -40,6 +42,7 @@ class Shard(NamedTuple):
     codebook: Optional[PQCodebook]
     medoid: int  # local id
     id_base: int  # global id of local id 0
+    nbr_codes: Optional[torch.Tensor] = None  # [n_loc, R*m] u8
 
 
 @dataclasses.dataclass
@@ -55,6 +58,8 @@ class ShardedIndex:
     id_base: np.ndarray  # [S] int32 global id offset of each shard
     fused_rows: Optional[torch.Tensor] = None  # [S, n_loc, R*(4+m)] u8 —
     # per-shard fused frontier rows (local ids, offset by id_base at merge)
+    nbr_codes: Optional[torch.Tensor] = None  # [S, n_loc, R*m] u8 — per-shard
+    # neighbor-aligned code rows (the neighbors' codes, self-padding included)
     _placed: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
 
@@ -80,6 +85,7 @@ class ShardedIndex:
                 fused_rows=on(self.fused_rows),
                 codebook=None if self.codebook is None else self.codebook.to(dev),
                 medoid=int(self.medoids[s]), id_base=int(self.id_base[s]),
+                nbr_codes=on(self.nbr_codes),
             )
         return self._placed[key]
 
@@ -101,21 +107,17 @@ def build_sharded_index(
     the full dataset on the host (formats/synthetic.train_pq, as JAX's) and
     shared across shards; the codes are encoded with numpy on the CPU (the
     JAX function's encoder) and on the card with formats/accel.encode_pq.
-    neighbor_codes=True raises: `nbr_codes` is a TPU layout the port leaves
-    out."""
-    if neighbor_codes:
-        raise ValueError(
-            "neighbor_codes asks for the JAX package's nbr_codes layout, a TPU "
-            "layout the port leaves out (models/index.py): use "
-            "fused_frontier=True or the scattered codes"
-        )
+    neighbor_codes=True adds each shard's neighbor-aligned code rows
+    (`nbr_codes`), fused_frontier=True its fused rows; exact shards (m=None)
+    take neither."""
     dev = resolve_device(device)
     pq = None
     if m is not None:
         pq = synthetic.train_pq(vectors, m, seed=seed)
         pq.codes = (synthetic.encode_pq(vectors, pq) if dev.type == "cpu"
                     else accel.encode_pq(vectors, pq, dev))
-    return partition_index(vectors, n_shards, r, pq, seed, fused_frontier, dev)
+    return partition_index(vectors, n_shards, r, pq, seed, fused_frontier, dev,
+                           neighbor_codes)
 
 
 def partition_index(
@@ -126,6 +128,7 @@ def partition_index(
     seed: int = 0,
     fused_frontier: bool = False,
     device="cuda",
+    neighbor_codes: bool = False,
 ) -> ShardedIndex:
     """build_sharded_index's partitioning with a PQ codebook and codes
     already made (`pq` with `codes`; None for exact shards), as a bundle
@@ -133,7 +136,8 @@ def partition_index(
 
     Per shard: a kNN + random-edge graph (r - max(2, r//8) nearest, the
     rest random, numpy generator from seed + s), the medoid, and with
-    fused_frontier the fused rows on local ids. The kNN graph is the numpy
+    fused_frontier the fused rows on local ids, with neighbor_codes the
+    neighbor-aligned code rows (built on the device in row blocks). The kNN graph is the numpy
     formats/synthetic.build_knn_graph on the CPU, exactly as JAX's, and
     formats/accel.build_knn_graph on the card (the same contract; ties
     between equal distances may order differently)."""
@@ -156,7 +160,7 @@ def partition_index(
                                            seed=seed + s)[0]
         medoids[s] = synthetic.medoid_of(part)
 
-    codebook = codes = fused = None
+    codebook = codes = fused = nbr = None
     if pq is not None:
         if pq.codes is None:
             raise ValueError("partition_index needs the PQ codes (pq.codes)")
@@ -172,6 +176,13 @@ def partition_index(
                 fused[s] = _pack_blocks(
                     adj[s], r * (4 + m),
                     lambda blk, c=codes[s]: pack_frontier_rows(blk, c), dev)
+        if neighbor_codes:
+            m = codes.shape[2]
+            nbr = torch.empty((n_shards, n_loc, r * m), dtype=torch.uint8, device=dev)
+            for s in range(n_shards):
+                nbr[s] = _pack_blocks(adj[s], r * m,
+                                      lambda blk, c=codes[s]: neighbor_code_rows(blk, c),
+                                      dev)
     return ShardedIndex(
         adj=torch.tensor(adj, device=dev),
         vectors=torch.tensor(np.asarray(vectors).reshape(n_shards, n_loc, -1),
@@ -181,4 +192,5 @@ def partition_index(
         medoids=medoids,
         id_base=np.arange(n_shards, dtype=np.int32) * n_loc,
         fused_rows=fused,
+        nbr_codes=nbr,
     )

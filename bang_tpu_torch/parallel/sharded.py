@@ -44,6 +44,7 @@ import torch
 
 from bang_tpu_torch.device import assert_exact_float32, resolve_device
 from bang_tpu_torch.models import compiled
+from bang_tpu_torch.models.index import layout_of
 from bang_tpu_torch.models.traversal import (
     SearchStats,
     check_params,
@@ -116,21 +117,23 @@ def psum(parts, dst) -> torch.Tensor:
 
 
 def _local_start(adj, vectors, codes, fused_rows, codebook, medoid, queries, *,
-                 l, max_iters, use_bloom, beam=1):
+                 l, max_iters, use_bloom, beam=1, nbr_codes=None, pq_impl="auto"):
     """The start of one shard's search for one query slice on the shard's
     device: (step, state, queries_f32), for traversal.traverse or
     traverse_together, then `_local_finish`.
 
     PQ shards take the single-device op point: the fused rows when the
-    shard has them (K2 on the card), else the scattered codes (K1 on the
-    card); the f32 tables on the CPU (traversal.make_pq_distance_fn).
-    Exact shards run the scattered exact traversal (JAX's sharded exact
-    path has no fused exact rows). The JAX function's `norms` and
-    `nbr_codes` are not taken: no port path reads them."""
+    shard has them (K2 on the card), else the neighbor-aligned code rows
+    when it has them, else the scattered codes (K1 on the card for both);
+    the f32 tables on the CPU; pq_impl as traversal.make_pq_distance_fn
+    takes it. Exact shards run the scattered exact traversal (JAX's
+    sharded exact path has no fused exact rows). The JAX function's
+    `norms` is not taken: no port path reads it."""
     queries_f32 = queries.float()
     if codes is not None:
         distance_fn = make_pq_distance_fn(queries_f32, codebook, codes,
-                                          fused_rows=fused_rows)
+                                          fused_rows=fused_rows,
+                                          nbr_codes=nbr_codes, impl=pq_impl)
     else:
         distance_fn = make_exact_distance_fn(queries_f32, vectors)
     step, state = start_traversal(adj, distance_fn, medoid, queries.shape[0], l,
@@ -151,13 +154,15 @@ def _local_finish(vectors, id_base, queries_f32, final, *, k, rerank, exact):
 
 
 def _local_search(adj, vectors, codes, fused_rows, codebook, medoid, id_base,
-                  queries, *, l, k, max_iters, use_bloom, beam=1, rerank=True):
+                  queries, *, l, k, max_iters, use_bloom, beam=1, rerank=True,
+                  nbr_codes=None, pq_impl="auto"):
     """Search one shard for one query slice on its own, start to finish
     (the per-shard loop that search_sharded's rounds reproduce); returns
     global-id top-k (ids [q, k] int32, dists [q, k] f32)."""
     step, state, queries_f32 = _local_start(
         adj, vectors, codes, fused_rows, codebook, medoid, queries, l=l,
-        max_iters=max_iters, use_bloom=use_bloom, beam=beam)
+        max_iters=max_iters, use_bloom=use_bloom, beam=beam, nbr_codes=nbr_codes,
+        pq_impl=pq_impl)
     final = traverse(step, state, max_iters)
     return _local_finish(vectors, id_base, queries_f32, final, k=k, rerank=rerank,
                          exact=codes is None)
@@ -229,7 +234,7 @@ def search_sharded(mesh: Mesh, sharded_index, queries, params: SearchParams,
             sh = si.shard(s, dev)
             walks.append((dev, qs.to(dev), _shard_start(sh, params, use_bloom),
                           _shard_finish(sh, params)))
-    done = _walk_all(si, ("sharded", mesh.key, qs.shape, params), walks,
+    done = _walk_all(si, ("sharded", layout_of(si), mesh.key, qs.shape, params), walks,
                      params.max_iters, mesh.home, stats)
     out_ids, out_dists = [], []
     for r, row in enumerate(mesh.devices):
@@ -245,7 +250,8 @@ def _shard_start(sh, params: SearchParams, use_bloom: bool):
     def start(queries):
         return _local_start(sh.adj, sh.vectors, sh.codes, sh.fused_rows, sh.codebook,
                             sh.medoid, queries, l=params.L, max_iters=params.max_iters,
-                            use_bloom=use_bloom, beam=params.beam_width)
+                            use_bloom=use_bloom, beam=params.beam_width,
+                            nbr_codes=sh.nbr_codes, pq_impl=params.pq_impl)
     return start
 
 
@@ -311,7 +317,8 @@ def search_data_parallel(mesh: Mesh, index, queries, params: SearchParams,
                       lambda q, replica=replica: prepare_inmemory(replica, q, params),
                       lambda queries_f32, final, replica=replica: finish_inmemory(
                           replica, queries_f32, final, params)[:2]))
-    done = _walk_all(index, ("data_parallel", mesh.key, qs.shape, params), walks,
+    done = _walk_all(index, ("data_parallel", layout_of(index), mesh.key, qs.shape,
+                             params), walks,
                      params.max_iters, mesh.home, stats)
     return (torch.cat([ids.to(mesh.home) for (ids, _), _ in done]),
             torch.cat([dists.to(mesh.home) for (_, dists), _ in done]))

@@ -28,8 +28,10 @@ and 4, sampled entry), measured again with five calls at the point it
 picks; "refined" holds the point as the refinement measured it. The JAX
 runner's pipelined QPS (6 batches in flight) has no counterpart:
 bang_query returns host arrays, so a call ends when its batch is done.
---refine on base and --neighbor-codes (a TPU layout the port leaves out)
-raise.
+--neighbor-codes loads the in-memory index in the neighbor-aligned code
+layout (models/index.py; the row's "layout" is "nbr_codes"), as the JAX
+runner's flag does. --refine on base raises, as does --neighbor-codes on
+another variant than inmemory.
 
 The artifact also records the device (name, power limit, count), torch and
 CUDA versions. Times on the CPU (--device cpu) are the host's.
@@ -160,9 +162,11 @@ def sweep_base(prefix, queries, gt_ids, gt_dists, grid=(30, 45, 60, 90), beam=2,
 
 
 def sweep_variant(prefix, variant, queries, gt_ids, gt_dists, grid, device="cuda",
-                  refine=False) -> dict:
+                  refine=False, index_kwargs=None) -> dict:
     """The HBM variants' row through BANGSearch (see the module docstring);
-    refine: the recall-0.9 frontier around the first passing L."""
+    refine: the recall-0.9 frontier around the first passing L;
+    index_kwargs: keyword arguments of bang_load (the layout, e.g.
+    neighbor_codes=True)."""
     from bang_tpu_torch.api import BANGSearch
     from bang_tpu_torch.utils.recall import calculate_recall
 
@@ -170,11 +174,11 @@ def sweep_variant(prefix, variant, queries, gt_ids, gt_dists, grid, device="cuda
     nq = queries.shape[0]
     s = BANGSearch(variant, device=device)
     t0 = time.perf_counter()
-    s.bang_load(prefix)
+    s.bang_load(prefix, **(index_kwargs or {}))
     load_s = time.perf_counter() - t0
     ix = s._index
     layout = ("fused" if ix.fused_rows is not None or ix.fused_vec_rows is not None
-              else "scattered")
+              else "nbr_codes" if ix.nbr_codes is not None else "scattered")
 
     def measure(L, reps, beam=cfg["beam"], extra=cfg["extra"], entry="medoid"):
         s.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra,
@@ -244,7 +248,7 @@ def main(argv=None) -> dict:
                     help="the recall-0.9 frontier around the first passing L "
                          "(inmemory/exactdistance; the bench's _refine_knee)")
     ap.add_argument("--neighbor-codes", action="store_true",
-                    help="the TPU's nbr_codes layout (not ported: raises)")
+                    help="force the neighbor-aligned nbr_codes layout (inmemory)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--note", default=None, help="free-form provenance note")
     ap.add_argument("--out", required=True, help="output JSON artifact path")
@@ -252,9 +256,8 @@ def main(argv=None) -> dict:
     if args.refine and args.variant == "base":
         raise ValueError("--refine refines the HBM variants' sweep "
                          "(inmemory, exactdistance), not base's")
-    if args.neighbor_codes:
-        raise ValueError("--neighbor-codes asks for the JAX package's nbr_codes "
-                         "layout, a TPU layout the port leaves out")
+    if args.neighbor_codes and args.variant != "inmemory":
+        raise ValueError("--neighbor-codes is a layout of the inmemory variant")
 
     from bang_tpu_torch.device import resolve_device
     from bang_tpu_torch.formats.graph import load_metadata
@@ -278,7 +281,9 @@ def main(argv=None) -> dict:
                 "steps_per_round_trip")}
     else:
         row = sweep_variant(prefix, args.variant, queries, gt_ids, gt_dists,
-                            tuple(args.grid), device=dev, refine=args.refine)
+                            tuple(args.grid), device=dev, refine=args.refine,
+                            index_kwargs={"neighbor_codes": True}
+                            if args.neighbor_codes else None)
     meta_path = prefix + "_disk_metadata.bin"
     if os.path.exists(meta_path):
         m = load_metadata(meta_path)

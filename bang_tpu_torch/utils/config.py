@@ -26,7 +26,7 @@ class SearchParams:
     beam_width: int = 1  # parents expanded per iteration (1 = reference schedule)
     rerank: bool = True  # exact re-rank of visited nodes (PQ variants)
     # "auto" | "pallas" | "pallas_dma" | "xla": the JAX package's kernel
-    # choice; the port takes only "auto" (models/traversal.check_params)
+    # choice, mapped onto the port's routes (models/traversal.make_pq_distance_fn)
     pq_impl: str = "auto"
     traversal_precision: str = "highest"  # exact-path cross term: "highest"|"default"
     capabilities: int = 0  # ENABLE_GPU_STATS | ENABLE_CACHE_WARMUP bitmask

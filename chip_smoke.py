@@ -119,7 +119,7 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 each against its eager plain version on the card. The
                 Vamana build (formats/vamana.build_vamana_graph: each
                 pass's first batch eager, then one graph launch a batch) on
-                200K points of the bench's clustered u8 data at phase 4's
+                100K points of the bench's clustered u8 data at phase 4's
                 settings (R=64, l_build 48,
                 batch 4096, alpha 1.44, 2 passes), against
                 build_vamana_graph_eager, in the order eager, captured,
@@ -232,6 +232,32 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 version, timed, with bounds, at the two breadth shapes (Q=2048,
                 100K rows, R=32, m=120 and m=50, beam 2). merge_bench_json on
                 the phase's rows. Any failed row fails the phase.
+ 20. layouts  — the JAX package's last search options, on phase 4's bundle
+                (after 17). The neighbor-aligned code layout
+                (`neighbor_codes=True`: nbr_codes [N, R*m] u8 4.1 GB and
+                adj_planes [N, 4R] u8 0.26 GB, K1 over each parent's code
+                row) beside the fused (K2) and scattered (K1) layouts at
+                in-memory L in {32, 64, 128}, beam 2, Q=10K, each through
+                phase 18's pattern (eager, captured, captured, eager):
+                ids, distances, iterations and distance computations
+                identical across the three layouts, the path's kernel once
+                a step; walls, busy shares, pools. Every pq_impl through the
+                three variants (in-memory on all three layouts at L=64,
+                exact fused and scattered at L=30, base at L=45): "pallas"
+                and "pallas_dma" identical to "auto", "pallas_dma" without
+                fused rows raising; "xla" (the f32 lookups, no kernel)
+                within 1.0 recall@10 point of "auto", its share of
+                identical id rows reported. BANG_MERGE_IMPL=ranked at
+                fused L=128 and exact L=100: identical to the sort merge,
+                and profile_base_step's merge_sort and merge_ranked ms at
+                those shapes. SearchServer over the new layout, 10 requests
+                of 128: identical to the fused layout's server. Then the
+                three layout probes (bang_tpu_torch.scripts.exp_fused32,
+                exp_gather, exp_decode at their own sizes, each counted: K2
+                at R=32 m=32 bit-exact ids over 1.2M rows and timed at
+                10M against the neighbor-aligned path; the seven code
+                gathers at 10M; f32 against u8-packed distances), their
+                times printed beside the card's name and power limit.
 --scale N     — not a phase: build_100m at N in 4 shards (the rest of its
                 recipe as it is), each shard's peak beside the model; base
                 through run_eval.py memory-mapped and in RAM at L in {30, 60,
@@ -292,7 +318,7 @@ CAPTURED_POINTS = (
 CAPTURED_BASE = ((90, BASE_PIPELINE), (90, 1))  # (L, sub-batches)
 # phase 19: the captured Vamana build at phase 4's settings on this many of
 # the bench's points; the streaming index at phase 13's point
-CAPTURED_BUILD_N = 200_000
+CAPTURED_BUILD_N = 100_000  # a check, not a timing: keeps the run inside its limit
 # phase 11: the Ls searched in bloom mode, and the JAX package's bar for the
 # recall bloom may lose against the exact mask at the same L
 BLOOM_L = {"inmemory": (64, 128, 256), "exactdistance": (30, 60, 100)}
@@ -315,6 +341,18 @@ SHARD_L = (128, 256)
 EXACT_SHARD_L = 256
 TP_BASE_L = (30, 90)
 KNN_CHECK_N = 20_000  # the card's kNN graph against numpy's on this many points
+# phase 20: the neighbor-aligned layout against the other two at these
+# Ls; each search option's point (pq_impl through the three variants);
+# the ranked merge at the two profiled searches; the server's requests
+NBR_L = (32, 64, 128)
+IMPL_L = {"inmemory": 64, "exactdistance": 30, "base": 45}
+PQ_IMPLS = ("auto", "pallas", "pallas_dma", "xla")
+# "xla" walks on f32 tables where the others read bf16 pairs: recall@10
+# within this many points of "auto" (tests/test_torch_search.py's bar)
+XLA_RECALL_SLACK = 1.0
+NBR_SERVER_REQUESTS = 10
+LAYOUT_PROBES = (("exp_fused32", {"frontier_lookup", "pq_lookup"}),
+                 ("exp_gather", set()), ("exp_decode", set()))
 # phase 16: scripts/build_100m.py's recipe (R=32, m=32, l_build 24, one pass,
 # overlap 2, batch 16384) cut to 262,144 points in 4 shards, the generator's
 # block to 65,536 and the PQ training sample to PQ_SAMPLE; base at these Ls
@@ -431,10 +469,7 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs on a CUDA card only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi()
     print(smi, flush=True)
     from bang_tpu_torch.ops import _build
 
@@ -1322,14 +1357,20 @@ def _peak_reserved_gb(fn):
     return torch.cuda.max_memory_reserved() / 1e9
 
 
-def _same_run(label, a, b, keys):
+def _same_result(label, a, b, keys=("ids", "dists", "iters", "dist_comps")):
+    """Raise unless the two calls' `keys` are identical."""
     for key in keys:
         same = (np.array_equal(a[key], b[key]) if isinstance(a[key], np.ndarray)
                 else a[key] == b[key])
         if not same:
-            raise AssertionError(f"captured {label}: {key} differ between the eager "
-                                 f"and the captured loop: {a[key] if key != 'ids' else ''}"
-                                 f" vs {b[key] if key != 'ids' else ''}")
+            rows = (f" on {int((a[key] != b[key]).any(1).sum())} queries"
+                    if key in ("ids", "dists") else f": {a[key]} vs {b[key]}")
+            raise AssertionError(f"{label}: {key} differ{rows}")
+
+
+def _same_run(label, a, b, keys):
+    """Raise unless the eager call `a` and the captured call `b` agree."""
+    _same_result(f"captured {label}, the eager against the captured loop", a, b, keys)
 
 
 def _captured_point(index, variant, L, entry_mode, visited_mode, queries, label):
@@ -2697,6 +2738,270 @@ def phase_bench(prefix, dev, totals, kern, builds):
     return rows
 
 
+def _smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _xla_close(label, auto, xla, gt_ids, gt_dists):
+    """"xla" against "auto": recall@10 within XLA_RECALL_SLACK; the share
+    of identical id rows is reported, and on those rows the distances
+    (exact re-rank or exact walk) must be identical."""
+    from bang_tpu_torch.utils.recall import calculate_recall
+
+    r_a = calculate_recall(gt_ids, auto["ids"], K, gt_dists)
+    r_x = calculate_recall(gt_ids, xla["ids"], K, gt_dists)
+    same = (auto["ids"] == xla["ids"]).all(1)
+    if abs(r_a - r_x) > XLA_RECALL_SLACK:
+        raise AssertionError(f"{label}: xla recall@10 {r_x:.2f}, auto {r_a:.2f}")
+    if not np.array_equal(auto["dists"][same], xla["dists"][same]):
+        raise AssertionError(f"{label}: xla distances differ on identical id rows")
+    log(f"{label}: xla recall@10 {r_x:.2f} against auto {r_a:.2f}; ids identical on "
+        f"{same.mean():.2%} of queries, iterations {xla['iters']} against {auto['iters']}")
+
+
+def _captured_hbm(fn, index, queries, params):
+    """One search at a key after its first call (the eager loop and the
+    capture): the captured loop's `_hbm_call`."""
+    from bang_tpu_torch.models import compiled
+
+    compiled.readback(fn(index, queries, params)[0])
+    return _hbm_call(fn, index, queries, params)
+
+
+def _nbr_layout_points(ixs, queries):
+    """Phase 20, layouts: at each L of NBR_L the neighbor-aligned layout
+    through phase 18's eager-captured pattern (_captured_point), its ids,
+    distances, iterations and distance computations identical to the fused
+    and the scattered layouts' captured calls, each layout's kernel once a
+    step; at the largest L all three through _captured_point (walls, busy
+    shares, pools beside each other)."""
+    from bang_tpu_torch.models import compiled, inmemory
+    from bang_tpu_torch.utils.config import SearchParams
+
+    beam, extra = BEAM_EXTRA["inmemory"]
+    q = torch.as_tensor(queries)
+    for L in NBR_L:
+        pts = {}
+        for name, ix in ixs.items():
+            if name == "nbr_codes" or L == NBR_L[-1]:
+                pts[name] = _captured_point(ix, "inmemory", L, "medoid", "exact", queries,
+                                            f"phase 20 inmemory {name}")
+                pts[name]["run"] = pts[name]["walls"]["captured"][0]
+            else:
+                params = SearchParams(L=L, k=K, beam_width=beam, extra_iters=extra)
+                run = _captured_hbm(inmemory.search_inmemory, ix, q, params)
+                kernel = "pq_lookup" if ix.fused_rows is None else "frontier_lookup"
+                if run["launches"] != {kernel: run["iters"] - 1}:
+                    raise AssertionError(f"phase 20 {name} L={L}: launches "
+                                         f"{run['launches']}")
+                pts[name] = {"run": run}
+            compiled.drop_graphs(ix)
+        nbr = pts["nbr_codes"]["run"]
+        for other in ("fused", "scattered"):
+            _same_result(f"phase 20 nbr_codes against {other} L={L}", nbr,
+                         pts[other]["run"])
+        log(f"phase 20 L={L}: nbr_codes ids, distances, iterations ({nbr['iters']}) "
+            f"and distance computations ({nbr['dist_comps']}) identical to fused and "
+            f"scattered; K1 launches a call {nbr['launches']}; captured walls "
+            + ", ".join(f"{k} {p['run']['wall_s']:.4f}" for k, p in pts.items())
+            + " s; captured " + "; ".join(f"{k} {_busy_text(p['prof']['captured'])}"
+                                          for k, p in pts.items() if "prof" in p))
+
+
+def _impl_points(prefix, dev, ixs, exact_ixs, queries, gt_ids, gt_dists):
+    """Phase 20, pq_impl: each value through the three variants at IMPL_L.
+    "pallas" and "pallas_dma" identical to "auto" (ids, distances,
+    iterations, distance computations, the kernel once a step); "xla" runs
+    no kernel (the f32 lookups) and stays within XLA_RECALL_SLACK;
+    "pallas_dma" without fused rows raises, as JAX's does."""
+    from bang_tpu_torch.models import compiled, exactdistance, inmemory
+    from bang_tpu_torch.models.base import BaseVariantSearcher
+    from bang_tpu_torch.utils.config import SearchParams
+
+    q = torch.as_tensor(queries)
+    variants = [("inmemory", name, ix, inmemory.search_inmemory)
+                for name, ix in ixs.items()]
+    variants += [("exactdistance", name, ix, exactdistance.search_exact)
+                 for name, ix in exact_ixs.items()]
+    for variant, name, ix, fn in variants:
+        beam, extra = BEAM_EXTRA[variant]
+        runs = {}
+        for impl in PQ_IMPLS:
+            params = SearchParams(L=IMPL_L[variant], k=K, beam_width=beam,
+                                  extra_iters=extra, pq_impl=impl)
+            fused = ix.fused_rows is not None or ix.fused_vec_rows is not None
+            if impl == "pallas_dma" and not fused:
+                try:
+                    fn(ix, q, params)
+                except ValueError as e:
+                    if "fused" not in str(e):
+                        raise
+                    log(f"phase 20 {variant} {name} pallas_dma raises: {e}")
+                    continue
+                raise AssertionError(f"{variant} {name}: pallas_dma did not raise")
+            runs[impl] = _captured_hbm(fn, ix, q, params)
+            compiled.drop_graphs(ix)
+        kernel = {"fused": "frontier_lookup", "nbr_codes": "pq_lookup",
+                  "scattered": "pq_lookup"}[name] if variant == "inmemory" else (
+                      "exact_frontier" if name == "fused" else None)
+        label = f"phase 20 {variant} {name} L={IMPL_L[variant]}"
+        for impl, run in runs.items():
+            pq_route = variant == "inmemory" and impl == "xla"
+            want = ({} if kernel is None or pq_route
+                    else {kernel: run["iters"] - 1})
+            if run["launches"] != want:
+                raise AssertionError(f"{label} {impl}: launches {run['launches']}, "
+                                     f"expected {want}")
+            if impl != "auto" and not pq_route:
+                _same_result(f"{label} {impl} against auto", run, runs["auto"])
+        if variant == "inmemory":
+            _xla_close(f"{label}", runs["auto"], runs["xla"], gt_ids, gt_dists)
+        log(f"{label}: " + ", ".join(f"{k} {r['wall_s']:.4f} s" for k, r in runs.items())
+            + "; pallas and pallas_dma identical to auto")
+
+    searcher = BaseVariantSearcher(prefix, BASE_PIPELINE, mmap=False, device=dev)
+    runs = {}
+    for impl in PQ_IMPLS:
+        params = SearchParams(L=IMPL_L["base"], k=K, beam_width=BASE_BEAM,
+                              extra_iters=BASE_EXTRA, pq_impl=impl)
+        searcher.search(queries, params)  # the key's eager call, then its capture
+        runs[impl] = _base_call(searcher, queries, params)
+    label = f"phase 20 base L={IMPL_L['base']}"
+    for impl, run in runs.items():
+        want = {} if impl == "xla" else {"pq_lookup": run["steps"]}
+        if run["launches"] != want:
+            raise AssertionError(f"{label} {impl}: launches {run['launches']}, "
+                                 f"expected {want}")
+        if impl in ("pallas", "pallas_dma"):
+            _same_result(f"{label} {impl} against auto", run, runs["auto"],
+                         ("ids", "dists", "steps"))
+    _xla_close(label, {**runs["auto"], "iters": runs["auto"]["steps"]},
+               {**runs["xla"], "iters": runs["xla"]["steps"]}, gt_ids, gt_dists)
+    log(f"{label}: " + ", ".join(f"{k} {r['wall_s']:.4f} s" for k, r in runs.items()))
+    del searcher
+
+
+def _ranked_points(dev, ixs, exact_ixs, queries):
+    """Phase 20, the ranked merge: BANG_MERGE_IMPL=ranked at the profiled
+    fused L=128 and exact L=100 searches, ids, distances, iterations and
+    distance computations identical to the sort merge's (a new graph key
+    captures it); then profile_base_step's merge_sort and merge_ranked ms
+    at those two searches' shapes."""
+    from bang_tpu_torch.models import compiled, exactdistance, inmemory
+    from bang_tpu_torch.scripts import profile_base_step
+    from bang_tpu_torch.utils.config import SearchParams
+
+    q = torch.as_tensor(queries)
+    for variant, ix, fn, L in (
+            ("inmemory", ixs["fused"], inmemory.search_inmemory, PROFILE_L),
+            ("exactdistance", exact_ixs["fused"], exactdistance.search_exact,
+             EXACT_PROFILE_L)):
+        beam, extra = BEAM_EXTRA[variant]
+        params = SearchParams(L=L, k=K, beam_width=beam, extra_iters=extra)
+        runs = {"sort": _captured_hbm(fn, ix, q, params)}
+        os.environ["BANG_MERGE_IMPL"] = "ranked"
+        try:
+            runs["ranked"] = _captured_hbm(fn, ix, q, params)
+        finally:
+            del os.environ["BANG_MERGE_IMPL"]
+        compiled.drop_graphs(ix)
+        _same_result(f"phase 20 ranked merge {variant} L={L}", runs["ranked"],
+                     runs["sort"], ("ids", "dists", "iters", "dist_comps", "launches"))
+        log(f"phase 20 ranked merge {variant} L={L}: ids, distances, iterations "
+            f"({runs['sort']['iters']}) identical to the sort merge; captured walls "
+            f"sort {runs['sort']['wall_s']:.4f} s, ranked {runs['ranked']['wall_s']:.4f} "
+            f"s; peak GB sort {runs['sort']['peak_gb']:.2f}, ranked "
+            f"{runs['ranked']['peak_gb']:.2f}")
+        prof = profile_base_step.main("cuda", q=Q, beam=beam, r=R, m=M, n=N, extra=extra,
+                                      l_grid=(L,))
+        row = prof["per_L"][str(L)]
+        log(f"phase 20 profile_base_step at {variant} L={L} (Q={Q}, beam {beam}, "
+            f"R={R}): merge_sort {row['merge_sort']} ms, merge_ranked "
+            f"{row['merge_ranked']} ms a merge, on {_smi()}")
+
+
+def _nbr_server(prefix, dev, queries):
+    """Phase 20, serving: SearchServer over the neighbor-aligned layout,
+    NBR_SERVER_REQUESTS requests of SERVER_BATCH, ids and distances
+    identical to a server on the fused layout."""
+    from bang_tpu_torch.harness.serving import SearchServer
+    from bang_tpu_torch.utils.config import SearchParams
+
+    beam, extra = BEAM_EXTRA["inmemory"]
+    params = SearchParams(L=WARMUP_L["inmemory"], k=K, beam_width=beam, extra_iters=extra)
+    qs = queries[: NBR_SERVER_REQUESTS * SERVER_BATCH]
+    out = {}
+    for name, load in (("nbr_codes", {"neighbor_codes": True}), ("fused", {})):
+        server = SearchServer(prefix, "inmemory", batch_size=SERVER_BATCH, params=params,
+                              device=dev, **load)
+        out[name] = (*server.query(qs), server.latency_percentiles())
+        server.close()
+        torch.cuda.empty_cache()
+    a, b = out["nbr_codes"], out["fused"]
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        raise AssertionError("SearchServer on nbr_codes differs from the fused layout")
+    log(f"phase 20 SearchServer nbr_codes, {NBR_SERVER_REQUESTS} requests of "
+        f"{SERVER_BATCH}: ids and distances identical to the fused layout's; latency "
+        f"ms nbr_codes " + ", ".join(f"{k} {v:.3f}" for k, v in a[2].items())
+        + "; fused " + ", ".join(f"{k} {v:.3f}" for k, v in b[2].items()))
+
+
+def _layout_probes(totals):
+    """Phase 20, probes: exp_fused32, exp_gather and exp_decode at their own
+    sizes, each counted, their times printed beside the card."""
+    smi = _smi()
+    for name, launched in LAYOUT_PROBES:
+        mod = importlib.import_module(f"bang_tpu_torch.scripts.{name}")
+        t0 = time.perf_counter()
+        res = counted(f"probe {name}", launched, lambda: mod.main("cuda"), totals)
+        log(f"probe {name} took {time.perf_counter() - t0:.1f}s on {smi}: "
+            + json.dumps(res, default=str))
+        torch.cuda.empty_cache()
+
+
+def phase_layouts(prefix, dev, totals):
+    """Phase 20: the neighbor-aligned layout, every pq_impl, the ranked
+    merge, the server over the new layout and the three layout probes
+    (see the module docstring)."""
+    from bang_tpu_torch.formats.bin_io import load_bin, load_truthset
+    from bang_tpu_torch.models.index import device_index_from_files, free_device_index
+
+    t0 = time.perf_counter()
+    queries = load_bin(prefix + "_query.bin", np.uint8)
+    gt_ids, gt_dists = load_truthset(prefix + "_gt.bin")
+    ixs = {}
+    for name, kw in (("nbr_codes", {"neighbor_codes": True}), ("fused", {}),
+                     ("scattered", {"fused_frontier": False})):
+        t1 = time.perf_counter()
+        ixs[name] = device_index_from_files(prefix, dev, "inmemory", **kw)
+        ix = ixs[name]
+        gb = sum(t.numel() for t in (ix.nbr_codes, ix.adj_planes, ix.fused_rows, ix.adj)
+                 if t is not None) / 1e9
+        log(f"phase 20 {name} index loaded in {time.perf_counter() - t1:.1f}s, "
+            f"{gb:.2f} GB of layout tables")
+    exact_ixs = {name: device_index_from_files(prefix, dev, "exactdistance", **kw)
+                 for name, kw in (("fused", {}), ("scattered", {"fused_frontier": False}))}
+    counted("phase 20 layouts", {"pq_lookup", "frontier_lookup"},
+            lambda: _nbr_layout_points(ixs, queries), totals)
+    counted("phase 20 pq_impl", {"pq_lookup", "frontier_lookup", "exact_frontier"},
+            lambda: _impl_points(prefix, dev, ixs, exact_ixs, queries, gt_ids, gt_dists),
+            totals)
+    counted("phase 20 ranked merge", {"pq_lookup", "frontier_lookup", "exact_frontier"},
+            lambda: _ranked_points(dev, ixs, exact_ixs, queries), totals)
+    for ix in (*ixs.values(), *exact_ixs.values()):
+        free_device_index(ix)
+    del ixs, exact_ixs
+    counted("phase 20 server", {"pq_lookup", "frontier_lookup"},
+            lambda: _nbr_server(prefix, dev, queries), totals)
+    _layout_probes(totals)
+    log(f"phase 20 (layouts, pq_impl, ranked merge, probes) "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
 def scale_run(dev, n, out_dir):
     """`--scale N` (not a phase of the default run): build_100m at N in 4
     shards, each shard's peak beside shard_build_hbm_bytes; base through
@@ -2806,7 +3111,7 @@ def _best(rows, what):
 
 
 def search_phases(dev, totals, kern, builds):
-    """Phases 4-17 on `dev`; adds the launch counts of 5-17 to `totals` (not
+    """Phases 4-20 on `dev`; adds the launch counts of 5-20 to `totals` (not
     those of the profiled calls after phases 5, 6, 7, 10 and 11, nor those
     of phase 14's K1 checks and phase 17's K2 checks, whose errors go into
     `kern`). Phase 17 runs after 14, on the bundle, once the processes
@@ -2880,6 +3185,7 @@ def search_phases(dev, totals, kern, builds):
         t0 = time.perf_counter()
         bench_rows = phase_bench(prefix, dev, totals, kern, builds)
         log(f"phase 17 (bench) {time.perf_counter() - t0:.1f}s")
+        phase_layouts(prefix, dev, totals)
     phase_streaming(dev, totals)
     best_big = phase_bigbuild(dev, totals)
     best_scale = phase_scale(dev, totals)
@@ -2891,7 +3197,8 @@ def search_phases(dev, totals, kern, builds):
         f"best L={best_s['L']} recall@10 {best_s['recall']:.2f}; sharded build best "
         f"L={best_big['L']} recall@10 {best_big['recall']:.2f}; scale base (mmap ids "
         f"identical to RAM) best L={best_scale['L']} recall@10 "
-        f"{best_scale['recall']:.2f}; bench rows " + ", ".join(
+        f"{best_scale['recall']:.2f}; nbr_codes layout, pq_impl, ranked merge and "
+        f"layout probes checked; bench rows " + ", ".join(
             f"{k} L={r['L']} recall@10 {r['recall']:.2f}" for k, r in bench_rows.items()))
 
 
@@ -2899,7 +3206,7 @@ def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card "
-                                 "(phases 1-17; see the module docstring).")
+                                 "(phases 1-20; see the module docstring).")
     ap.add_argument("--scale", type=int, default=None, metavar="N",
                     help="instead: build_100m at N points and the scale run "
                          "(scale_run), results in <out>/scale_<N>*.json")

@@ -289,9 +289,11 @@ def test_api_base_lifecycle_and_stage_timers(tiny_index):
 
 
 def test_api_base_refusals_name_roadmap(tiny_index):
-    """Bloom (ROADMAP item 15) and ENABLE_CACHE_WARMUP (item 11), once
-    refused, are served: each returns [Q, k] results. A JAX kernel name in
-    pq_impl and the card without a card still raise."""
+    """Bloom (ROADMAP item 15), ENABLE_CACHE_WARMUP (item 11) and the JAX
+    kernel names in pq_impl, once refused, are served: "pallas" walks on
+    the packed tables as the card does (K1's plain version here, the walk
+    of _CardRouteSearcher), "xla" on the f32 tables, the CPU's "auto"; the
+    card without a card still raises."""
     prefix, queries, _, _ = _bundle(tiny_index)
     s = BANGSearch("base", device="cpu")
     s.bang_load(prefix)
@@ -302,9 +304,15 @@ def test_api_base_refusals_name_roadmap(tiny_index):
     s.bang_alloc(4)
     assert s.warmup_touched > 0.99 * len(s._searcher.raw)
     assert s.bang_query(queries[:2])[0].shape == (2, 10)
-    s.bang_set_searchparams(10, 16, pq_impl="pallas")
-    with pytest.raises(ValueError, match="pq_impl"):
-        s.bang_query(queries[:2])
+    s.bang_set_searchparams(10, 16)
+    auto = s.bang_query(queries[:8])
+    params = SearchParams(L=16, k=10)
+    card = _CardRouteSearcher(prefix, device="cpu").search(queries[:8], params)
+    for impl, want in (("pallas", card), ("xla", auto)):
+        s.bang_set_searchparams(10, 16, pq_impl=impl)
+        got = s.bang_query(queries[:8])
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             BaseVariantSearcher(prefix)  # the card by default

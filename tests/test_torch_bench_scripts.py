@@ -63,8 +63,8 @@ def _profile_base(bundle, tmp_path):
                                  l_grid=(16, 32), iters=2)
     assert list(res["per_L"]) == ["16", "32"]
     assert set(res["per_L"]["16"]) == {"lookup_gather", "frontier_fused", "dedup_mask",
-                                       "merge_sort", "select_parents", "parent_l2",
-                                       "sum_ms"}
+                                       "merge_sort", "merge_ranked", "select_parents",
+                                       "parent_l2", "sum_ms"}
     assert all(v is None for v in res["per_L"]["32"].values())
     return res
 

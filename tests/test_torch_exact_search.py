@@ -210,8 +210,19 @@ def test_layout_options_and_refusals(tiny_uint8_index, tiny_index):
     queries = load_bin_auto(prefix + "_query.bin", np.float32)[:4]
     ids, dists, _ = search_exact(index, queries, SearchParams(L=16, visited_mode="bloom"))
     assert ids.shape == (4, 10) and torch.isfinite(dists).all()  # bloom is served
-    with pytest.raises(ValueError, match="pq_impl"):
-        search_exact(index, queries, SearchParams(L=16, pq_impl="pallas_dma"))
+    # pq_impl="pallas_dma", once refused, is K3 on the fused exact rows (what
+    # JAX's in-kernel read does); without them it raises, with JAX's message
+    a = search_exact(index, queries, SearchParams(L=16))
+    b = search_exact(index, queries, SearchParams(L=16, pq_impl="pallas_dma"))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    with pytest.raises(ValueError) as want:
+        jax_search(jax_index_from_files(prefix, "exactdistance", neighbor_vectors=False),
+                   queries, SearchParams(L=16, pq_impl="pallas_dma"))
+    with pytest.raises(ValueError) as got:
+        search_exact(device_index_from_files(prefix, "cpu", "exactdistance",
+                                              fused_frontier=False),
+                     queries, SearchParams(L=16, pq_impl="pallas_dma"))
+    assert str(got.value) == str(want.value)
     # "default" is a TPU matrix-unit setting: the port computes full f32
     a = search_exact(index, queries, SearchParams(L=16, traversal_precision="default"))
     b = search_exact(index, queries, SearchParams(L=16))

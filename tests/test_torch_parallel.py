@@ -142,13 +142,24 @@ def test_invalid_ids_survive_the_offset(dataset):
 
 
 def test_neighbor_codes_refused(dataset):
-    data = dataset[0]
-    with pytest.raises(ValueError, match="nbr_codes"):
-        partition.build_sharded_index(data, 4, r=24, m=16, neighbor_codes=True,
-                                      device="cpu")
+    """Once refused, neighbor_codes is served: the port's sharded index
+    stacks each shard's codes[adj] byte for byte as JAX's does, and a JAX
+    index holding nbr_codes carries over (sharded_index_from_jax) and
+    searches as JAX's does (the bars of test_search_sharded_matches_jax)."""
+    data, queries, _, _ = dataset
+    si = partition.build_sharded_index(data[:512], 4, r=8, m=4, neighbor_codes=True,
+                                       device="cpu")
     jsi = jax_partition.build_sharded_index(data[:512], 4, r=8, m=4, neighbor_codes=True)
-    with pytest.raises(ValueError, match="nbr_codes"):
-        sharded_index_from_jax(jsi, "cpu")
+    np.testing.assert_array_equal(si.nbr_codes.numpy(), np.asarray(jsi.nbr_codes))
+    carried = sharded_index_from_jax(jsi, "cpu")
+    assert torch.equal(carried.nbr_codes, si.nbr_codes)
+    assert carried.shard(1, "cpu").nbr_codes.shape == (128, 8 * 4)
+    want_ids, want_d = jax_sharded.search_sharded(
+        jax_sharded.make_mesh(2, 4), jsi, queries, JaxParams(L=24, k=10))
+    ids, dists = sharded.search_sharded(sharded.make_mesh(2, 4, CPU8), carried, queries,
+                                        SearchParams(L=24, k=10))
+    assert (ids.numpy() == np.asarray(want_ids)).mean() >= 0.98
+    np.testing.assert_allclose(dists.numpy(), np.asarray(want_d), rtol=1e-4, atol=1e-2)
 
 
 def test_search_data_parallel_matches_jax(dataset):

@@ -316,8 +316,17 @@ def test_run_eval_on_the_cpu(built_100m, tmp_path, variant):
 
 
 def test_run_eval_refusals(built_100m, tmp_path):
+    """--refine on base raises; --neighbor-codes, once refused, loads the
+    in-memory index in the neighbor-aligned layout (the JAX runner's flag)
+    and gives the fused layout's points, and raises on another variant."""
     base = ["--prefix", built_100m[0], "--device", "cpu", "--out", str(tmp_path / "x")]
     with pytest.raises(ValueError, match="refine"):
         run_eval.main(base + ["--variant", "base", "--refine"])
-    with pytest.raises(ValueError, match="nbr_codes"):
-        run_eval.main(base + ["--variant", "inmemory", "--neighbor-codes"])
+    with pytest.raises(ValueError, match="inmemory"):
+        run_eval.main(base + ["--variant", "exactdistance", "--neighbor-codes"])
+    grid = ["--variant", "inmemory", "--grid", "16", "--nq", "32"]
+    nbr = run_eval.main(base + grid + ["--neighbor-codes"])
+    fused = run_eval.main(base + grid)
+    assert (nbr["layout"], fused["layout"]) == ("nbr_codes", "fused")
+    assert [(p["recall"], p["iters"]) for p in nbr["points"]] == [
+        (p["recall"], p["iters"]) for p in fused["points"]]

@@ -178,8 +178,10 @@ def test_scattered_k1_walk_identical_to_fused_k2_walk(fused64_index, beam):
 
 
 def test_cpu_fused_route_is_f32_decode_and_pq_impl_auto_only(fused64_index):
-    """On the CPU the fused frontier is the f32 decode and K1 stays callable;
-    every pq_impl but "auto" names a JAX kernel and raises."""
+    """On the CPU the fused frontier is the f32 decode and K1 stays callable.
+    The other pq_impl values, once refused, are served: "xla" is that same
+    f32 route, "pallas" and "pallas_dma" the card's route, K2's plain
+    version over the packed tables."""
     prefix, queries, _, _ = _bundle(fused64_index)
     index = device_index_from_files(prefix, "cpu")
     q = torch.as_tensor(queries[:6]).float()
@@ -191,9 +193,16 @@ def test_cpu_fused_route_is_f32_decode_and_pq_impl_auto_only(fused64_index):
     got = fn.frontier_fn(parents)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(fn(want[0], parents), want[1])
-    for impl in ("pallas", "xla", "pallas_dma"):
-        with pytest.raises(ValueError, match="pq_impl"):
-            search_inmemory(index, queries[:2], SearchParams(L=16, pq_impl=impl))
+    packed = pk.pack_tables(tables)
+    routes = {"xla": want, "pallas": pk.frontier_lookup_plain(packed, index.fused_rows,
+                                                             parents)}
+    routes["pallas_dma"] = routes["pallas"]
+    for impl, route in routes.items():
+        got = make_pq_distance_fn(q, index.codebook, index.codes, index.fused_rows,
+                                  impl=impl).frontier_fn(parents)
+        assert torch.equal(got[0], route[0]) and torch.equal(got[1], route[1])
+        ids = search_inmemory(index, queries[:2], SearchParams(L=16, pq_impl=impl))[0]
+        assert ids.shape == (2, 10)
 
 
 def test_api_returns_int64_and_rejects_unported(fused64_index):
