@@ -33,14 +33,21 @@ torch.profiler, on the eager step with each step stage in a range, or on
 the captured step (its busy share; a replay has no ranges) (chip_smoke.py
 phase 10 and its --scale run).
 
-    python -m bang_tpu_torch.scripts.profile_base_step   # on the card
+    python -m bang_tpu_torch.scripts.profile_base_step [OUT]   # on the card
+    python -m bang_tpu_torch.scripts.profile_base_step --q 1250 --beam 2 \
+        --r 64 --m 32 --d 128 --n 10000000 --extra 24 --l-grid 64 128 \
+        --out OUT                                   # the JAX script's flags
+
+`--device cpu` runs the plain versions and times nothing. The JAX
+script's `--out` default wrote into its own checkout; here the JSON is
+written only where `--out` or OUT names a file.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
-import sys
 import time
 
 import numpy as np
@@ -231,5 +238,33 @@ def profile_base(prefix, dev, L, beam=2, extra=16, n_pipeline=8, k=10,
             "code_gather_ms": gather_n and gather_ms / gather_n, "peak_gb": peak / 1e9}
 
 
+def cli(argv=None) -> dict:
+    """The command line: the JAX script's flags (its defaults, the module's
+    constants) mapped onto main's keywords; OUT, the one positional, is
+    the same as --out."""
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("out_path", nargs="?", default=None, metavar="OUT",
+                    help="the JSON file (the same as --out)")
+    ap.add_argument("--q", type=int, default=Q,
+                    help="sub-batch size (10K queries / 8 pipeline batches)")
+    ap.add_argument("--beam", type=int, default=BEAM)
+    ap.add_argument("--r", type=int, default=R)
+    ap.add_argument("--m", type=int, default=M)
+    ap.add_argument("--d", type=int, default=D)
+    ap.add_argument("--n", type=int, default=N,
+                    help="code-table rows resident on the device for the gather")
+    ap.add_argument("--extra", type=int, default=EXTRA)
+    ap.add_argument("--l-grid", type=int, nargs="+", default=L_GRID)
+    ap.add_argument("--out", default=None, help="the JSON file")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.out and args.out_path and args.out != args.out_path:
+        ap.error("OUT and --out name different files")
+    return main(args.device, q=args.q, beam=args.beam, r=args.r, m=args.m, d=args.d,
+                n=args.n, extra=args.extra, l_grid=tuple(args.l_grid),
+                out=args.out or args.out_path)
+
+
 if __name__ == "__main__":
-    main(out=sys.argv[1] if len(sys.argv) > 1 else None)
+    cli()

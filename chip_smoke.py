@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                   # from the repo root; one CUDA card
     python3 chip_smoke.py --scale 10000000  # instead: the scale run (scale_run)
+    python3 chip_smoke.py --real sift1m     # instead: the real-corpus run (real_run)
 
 Phases, each printing progress; any failure raises and exits non-zero:
   1. device   — require CUDA; print the card's name and power limit
@@ -101,10 +102,12 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 search, its traversal a WHILE node; base: one graph replay a
                 sub-batch's step) against the eager loop, its plain version,
                 on the bundle: in-memory fused L=128 (exact and bloom mode,
-                medoid and sampled entry) and scattered L=512, exact fused
-                L=10 (medoid, sampled) and L=100, the serving batch of 128
-                (in-memory L=64, exact L=30), base L=90 with 8
-                sub-batches and with 1; calls in the order eager, captured,
+                medoid and sampled entry), exact fused L=10 (medoid,
+                sampled) and L=100, the serving batch of 128 (in-memory
+                L=64, exact L=30), base L=90 with 1 sub-batch (scattered
+                L=512 and base with 8 sub-batches are cut for the time
+                limit: phases 20 and 14 hold their captures against the
+                eager loop); calls in the order eager, captured,
                 captured, eager after each key's capture: ids, distances,
                 iterations, distance computations and K1/K2/K3 launches (as
                 the kernels count them on the card) identical (base: steps
@@ -166,7 +169,9 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 extra_iters 24 over 2,048 queries; 10% churn (delete,
                 consolidate(batch=4096), re-insert 4,096 into freed slots):
                 recall@10 over the live set >= 90 before and after the churn,
-                no kernel launched.
+                no kernel launched. The timed inserts and searches hold the
+                captured loops only (each key's eager call and capture run
+                before the clock starts).
  14. sharded  — parallel/ on the bundle's data, every mesh on [card] * n
                 (one card): K1 against its plain version and timed at each
                 code width the sharded paths give it (m/4 chunks, and the dry
@@ -258,6 +263,29 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 10M against the neighbor-aligned path; the seven code
                 gathers at 10M; f32 against u8-packed distances), their
                 times printed beside the card's name and power limit.
+ 21. real corpus — bang_tpu_torch/scripts/get_real_data.py (after 16) on
+                two fabricated TexMex corpora in a temp dir, each in its
+                DATASETS layout (.fvecs base and queries, .ivecs top-100
+                ground truth from formats/accel.compute_groundtruth on the
+                card): siftsmall at its published shape (10,000 x 128,
+                integer values as SIFT's, 100 queries) and gist1m at GIST's
+                widths (20,000 x 960 f32, 200 queries). The script runs in
+                this process with --skip-download --device cuda: convert,
+                true ground-truth distances, Vamana graph, PQ, then the
+                harness driver's in-memory auto sweep to recall@10 90.
+                K2 launched and no other kernel; rc 0; the stage seconds
+                printed; the last L's best recall@10 >= 90 over true
+                distances; the truthset's distances within 1e-5 relative
+                of float64. The
+                same ids' recall over a zero-distance truthset (the JAX
+                script's) is printed beside it.
+--real NAME   — not a phase: the real-corpus pipeline on a corpus
+                fabricated at its published shape (sift1m: 1,000,000 x 128,
+                10,000 queries, top-100 ground truth), phase 21's bars.
+                Results in <out>/real_<NAME>.json (stage seconds, each L's
+                walls, QPS and recall@10 under both truthsets, K2's
+                launches, the card's name and power limit); no kernels
+                line, no "ok" line.
 --scale N     — not a phase: build_100m at N in 4 shards (the rest of its
                 recipe as it is), each shard's peak beside the model; base
                 through run_eval.py memory-mapped and in RAM at L in {30, 60,
@@ -302,10 +330,13 @@ RECALL_TARGET = 90.0
 BASE_L_SWEEP = (30, 45, 60, 90)
 BASE_BEAM, BASE_EXTRA, BASE_PIPELINE = 2, 16, 8
 # phase 18: the captured loop against the eager loop at these points:
-# (label, variant, L, fused_frontier, entry_mode, visited_mode, queries)
+# (label, variant, L, fused_frontier, entry_mode, visited_mode, queries).
+# Cut for the run's time limit: scattered L=512 (25.6 s; phase 20 holds the
+# scattered layout's captured calls against its eager ones at L 32-128) and
+# base with 8 sub-batches (42 s; phase 14 holds the chunk-sharded base's 8
+# captured sub-batches against its eager step)
 CAPTURED_POINTS = (
     ("inmemory fused", "inmemory", PROFILE_L, None, "medoid", "exact", Q),
-    ("inmemory scattered", "inmemory", SCATTERED_PROFILE_L, False, "medoid", "exact", Q),
     ("exact fused", "exactdistance", 10, None, "medoid", "exact", Q),
     ("exact fused", "exactdistance", EXACT_PROFILE_L, None, "medoid", "exact", Q),
     ("inmemory fused bloom", "inmemory", PROFILE_L, None, "medoid", "bloom", Q),
@@ -315,7 +346,7 @@ CAPTURED_POINTS = (
     ("inmemory fused batch 128", "inmemory", 64, None, "medoid", "exact", 128),
     ("exact fused batch 128", "exactdistance", 30, None, "medoid", "exact", 128),
 )
-CAPTURED_BASE = ((90, BASE_PIPELINE), (90, 1))  # (L, sub-batches)
+CAPTURED_BASE = ((90, 1),)  # (L, sub-batches)
 # phase 19: the captured Vamana build at phase 4's settings on this many of
 # the bench's points; the streaming index at phase 13's point
 CAPTURED_BUILD_N = 100_000  # a check, not a timing: keeps the run inside its limit
@@ -365,6 +396,16 @@ SCALE_RUN_L = (30, 60, 90, 128, 180, 256)
 SCALE_RUN_EXTRA = 24
 SCALE_RUN_IM_L = (10, 16, 24, 32, 48, 64, 96, 128)
 SCALE_RUN_FIRST_TOUCH_L = 60
+# phase 21: fabricated TexMex corpora through scripts/get_real_data.py, each
+# in its DATASETS layout: (dataset, points, dim, queries, integer values as
+# SIFT's, seed); siftsmall at its published shape, gist1m at GIST's widths
+REAL_CORPORA = (("siftsmall", 10_000, 128, 100, True, 21),
+                ("gist1m", 20_000, 960, 200, False, 22))
+# `--real NAME`: a corpus fabricated at its published shape
+REAL_RUNS = {"sift1m": (1_000_000, 128, 10_000, True, 23)}
+REAL_GT_K = 100  # the TexMex ground truth's width
+REAL_DIST_RTOL = 1e-5  # the truthset's f32 distances against float64
+REAL_STAGES = ("convert", "distances", "graph", "pq_train", "encode")
 # K1 at the code widths the sharded paths launch it with: (label, Q, C, m)
 K1_WIDTHS = (
     ("the chunk-sharded base, m/4 chunks a shard", Q // BASE_PIPELINE, BASE_BEAM * R,
@@ -2022,7 +2063,8 @@ def phase_streaming(dev, totals):
         STREAM_N, D, STREAM_R, STREAM_Q, STREAM_CHUNK, dev), totals)
     n = STREAM_N
     log(f"streaming: first {STREAM_CHUNK} inserts (the ramp) {row['ramp_s']:.3f} s")
-    log(f"streaming: {n - STREAM_CHUNK} inserts in {row['insert_wall_s']:.3f} s "
+    log(f"streaming: {row['inserts_timed']} inserts timed (the captured insert, after "
+        f"the key's eager batch and its capture) in {row['insert_wall_s']:.3f} s "
         f"({row['inserts_per_s']:.1f} inserts/s); search {STREAM_Q} queries qps "
         f"{row['qps_pre_churn']:.1f}, recall@10 {row['recall_pre_churn']:.2f}")
     log(f"streaming: delete {n // 10}, consolidate {row['consolidate_s']:.3f} s "
@@ -3085,6 +3127,192 @@ def scale_run(dev, n, out_dir):
     log(f"scale run N={n}: {json.dumps(kern)}")
 
 
+def _write_vecs(path, arr):
+    """A TexMex vecs file: each row as <int32 dim><dim 4-byte elements>."""
+    rec = np.empty((arr.shape[0], 1 + arr.shape[1]), "<i4")
+    rec[:, 0] = arr.shape[1]
+    rec[:, 1:] = np.ascontiguousarray(arr).view("<i4")
+    rec.tofile(path)
+
+
+def write_corpus(root, name, n, d, nq, integer, seed, dev):
+    """Fabricate a TexMex corpus under `root` in the layout DATASETS[name]
+    of scripts/get_real_data.py names: make_clustered_data points (u8
+    values stored as f32 where `integer`, as SIFT's are), queries = points
+    + noise, the top-REAL_GT_K ground truth ids from formats/accel.
+    compute_groundtruth on `dev`. Returns (base, queries) f32."""
+    from bang_tpu_torch.formats.accel import compute_groundtruth
+    from bang_tpu_torch.formats.synthetic import make_clustered_data
+    from bang_tpu_torch.scripts.get_real_data import DATASETS
+
+    rng = np.random.default_rng(seed)
+    base = make_clustered_data(n, d, n_clusters=max(64, n // 1000),
+                               dtype=np.uint8 if integer else np.float32,
+                               seed=seed).astype(np.float32)
+    picks = base[rng.integers(0, n, nq)]
+    if integer:
+        queries = np.clip(np.rint(picks + rng.normal(0, 2.0, (nq, d))), 0, 255)
+    else:
+        queries = picks + rng.normal(0, 0.05, (nq, d))
+    queries = queries.astype(np.float32)
+    gt_ids, _ = compute_groundtruth(base, queries, REAL_GT_K, dev)
+    cfg = DATASETS[name]
+    for key, arr in (("base", base), ("query", queries), ("gt", gt_ids.astype(np.int32))):
+        path = os.path.join(root, cfg[key])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        _write_vecs(path, arr)
+    return base, queries
+
+
+class _Tee:
+    """A stdout that also keeps what it was given."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_real(root, name, nq, dev):
+    """scripts/get_real_data.py on the corpus under `root` with
+    --skip-download, on `dev`, in this process. Each of the harness
+    driver's calls is recorded by L: its reps (wall ms, QPS, recall@10
+    over the truthset's true distances, and the same ids' recall@10 over
+    a zero-distance truthset, as the JAX script writes), and the rep the
+    harness driver's `best` row reports (the fastest after the first).
+    Returns {"rc", "stages_s" (the script's printed line), "rows"}."""
+    import sys
+
+    from bang_tpu_torch.harness import driver
+    from bang_tpu_torch.scripts import get_real_data
+
+    rows, zero = [], []
+    run_L, recall = driver.run_L, driver.calculate_recall
+
+    def scored(gt_ids, ids, k, gt_dists):
+        zero.append(recall(gt_ids, ids, k, np.zeros_like(gt_dists)))
+        return recall(gt_ids, ids, k, gt_dists)
+
+    def by_L(engine, queries, gt_ids, gt_dists, L, *args, **kwargs):
+        first = len(zero)
+        reps = run_L(engine, queries, gt_ids, gt_dists, L, *args, **kwargs)
+        reps = [{"wall_ms": w, "qps": q, "recall": r, "recall_zero_dists": z}
+                for (w, q, r), z in zip(reps, zero[first:], strict=True)]
+        best = max(reps[1:] or reps, key=lambda rep: rep["qps"])
+        rows.append({"L": L, "reps": reps, "best": best})
+        return [(rep["wall_ms"], rep["qps"], rep["recall"]) for rep in reps]
+
+    tee = _Tee(sys.stdout)
+    driver.run_L, driver.calculate_recall = by_L, scored
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = get_real_data.main([name, "--dir", root, "--skip-download", "--device",
+                                     dev.type, "--num-queries", str(nq)])
+    finally:
+        driver.run_L, driver.calculate_recall = run_L, recall
+    marker = "[real] stage seconds "
+    stages = [line[len(marker):] for line in "".join(tee.parts).splitlines()
+              if line.startswith(marker)]
+    return {"rc": rc, "stages_s": json.loads(stages[-1]) if stages else None,
+            "rows": rows}
+
+
+def check_real(name, root, base, queries, res):
+    """Phase 21's bars on one run_real result: rc 0, every stage timed, the
+    harness driver's last `best` recall@10 >= RECALL_TARGET over true
+    distances, the truthset's distances equal to a float64 recomputation
+    within REAL_DIST_RTOL. Logs each L's walls, QPS and both recalls."""
+    from bang_tpu_torch.formats.bin_io import load_truthset
+
+    if res["rc"] != 0:
+        raise AssertionError(f"real {name}: get_real_data returned {res['rc']}")
+    stages = res["stages_s"] or {}
+    if not set(REAL_STAGES) <= set(stages):
+        raise AssertionError(f"real {name}: stage seconds {stages}, want {REAL_STAGES}")
+    log(f"real {name}: stage seconds " + ", ".join(f"{k} {v:.3f}"
+                                                   for k, v in stages.items()))
+    for row in res["rows"]:
+        b = row["best"]
+        log(f"real {name} L={row['L']}: best wall {b['wall_ms']:.3f} ms, QPS "
+            f"{b['qps']:.1f}, recall@10 {b['recall']:.2f} over true distances, "
+            f"{b['recall_zero_dists']:.2f} over zero distances (reps: " + "; ".join(
+                f"{r['wall_ms']:.3f} ms {r['recall']:.2f}/{r['recall_zero_dists']:.2f}"
+                for r in row["reps"]) + ")")
+    if not res["rows"] or res["rows"][-1]["best"]["recall"] < RECALL_TARGET:
+        raise AssertionError(f"real {name}: the sweep ended below recall@10 "
+                             f"{RECALL_TARGET}: {res['rows'][-1:]}")
+    ids, dists = load_truthset(os.path.join(root, name + "_gt.bin"))
+    want = ((base[ids.astype(np.int64)].astype(np.float64)
+             - queries[: len(ids), None, :].astype(np.float64)) ** 2).sum(-1)
+    err = float((np.abs(dists - want) / np.maximum(want, 1e-30)).max())
+    if not np.allclose(dists, want, rtol=REAL_DIST_RTOL, atol=0.0):
+        raise AssertionError(f"real {name}: truthset distances off by {err:.3e} "
+                             f"relative (> {REAL_DIST_RTOL})")
+    log(f"real {name}: truthset distances within {err:.3e} relative of float64 "
+        f"({ids.shape[0]} x {ids.shape[1]})")
+    return err
+
+
+def phase_real(dev, totals):
+    """Phase 21: the real-corpus pipeline (scripts/get_real_data.py) on
+    each of REAL_CORPORA, fabricated into a temp dir: K2 launched and no
+    other kernel, check_real's bars. Returns {dataset: the last L's best}."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp:
+        for name, n, d, nq, integer, seed in REAL_CORPORA:
+            t0 = time.perf_counter()
+            base, queries = write_corpus(tmp, name, n, d, nq, integer, seed, dev)
+            log(f"real {name}: {n} x {d} f32, {nq} queries, top-{REAL_GT_K} ground "
+                f"truth written in {time.perf_counter() - t0:.2f}s")
+            t0 = time.perf_counter()
+            res = counted(f"real {name}", {"frontier_lookup"},
+                          lambda: run_real(tmp, name, nq, dev), totals)
+            log(f"real {name}: script {time.perf_counter() - t0:.2f}s")
+            check_real(name, tmp, base, queries, res)
+            out[name] = res["rows"][-1]
+            torch.cuda.empty_cache()  # the graphs bang_unload dropped
+    return out
+
+
+def real_run(dev, name, out_dir):
+    """`--real NAME` (not a phase of the default run): REAL_RUNS[name]'s
+    corpus fabricated at its published shape, then scripts/get_real_data.py
+    on it as in phase 21 (the same bars, K2 the only kernel). Writes
+    <out_dir>/real_<name>.json: the stage seconds, each L's walls, QPS and
+    recall@10 under both truthsets, K2's launches, the card."""
+    from bang_tpu_torch.ops import pq_kernels as pk
+
+    n, d, nq, integer, seed = REAL_RUNS[name]
+    os.makedirs(out_dir, exist_ok=True)
+    result = {"dataset": name, "n": n, "dim": d, "queries": nq, "gt_k": REAL_GT_K,
+              "integer_values": integer, "seed": seed, "card": _smi()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp:
+        t0 = time.perf_counter()
+        base, queries = write_corpus(tmp, name, n, d, nq, integer, seed, dev)
+        result["fabricate_s"] = time.perf_counter() - t0
+        log(f"real {name}: {n} x {d} f32, {nq} queries, top-{REAL_GT_K} ground truth "
+            f"written in {result['fabricate_s']:.2f}s")
+        pk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_real(tmp, name, nq, dev)
+        result["script_s"] = time.perf_counter() - t0
+        result["launches"] = pk.launch_counts()
+        result.update(res)
+        log(f"real {name}: script {result['script_s']:.2f}s, launches "
+            f"{result['launches']}")
+        result["gt_dist_max_rel_err"] = check_real(name, tmp, base, queries, res)
+    with open(os.path.join(out_dir, f"real_{name}.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    if any((c > 0) != (k == "frontier_lookup") for k, c in result["launches"].items()):
+        raise AssertionError(f"real {name}: launches {result['launches']}, expected only "
+                             f"frontier_lookup")
+
+
 def counted(label, launched, fn, totals):
     """Run one search phase with every launch count zeroed just before and
     read just after; fail unless exactly the kernels named in `launched`
@@ -3111,7 +3339,7 @@ def _best(rows, what):
 
 
 def search_phases(dev, totals, kern, builds):
-    """Phases 4-20 on `dev`; adds the launch counts of 5-20 to `totals` (not
+    """Phases 4-21 on `dev`; adds the launch counts of 5-21 to `totals` (not
     those of the profiled calls after phases 5, 6, 7, 10 and 11, nor those
     of phase 14's K1 checks and phase 17's K2 checks, whose errors go into
     `kern`). Phase 17 runs after 14, on the bundle, once the processes
@@ -3189,6 +3417,9 @@ def search_phases(dev, totals, kern, builds):
     phase_streaming(dev, totals)
     best_big = phase_bigbuild(dev, totals)
     best_scale = phase_scale(dev, totals)
+    t0 = time.perf_counter()
+    real = phase_real(dev, totals)
+    log(f"phase 21 (real corpus) {time.perf_counter() - t0:.1f}s")
     log(f"ok: inmemory best L={best['L']} recall@10 {best['recall']:.2f}, "
         f"scattered ids and iterations identical; exactdistance best "
         f"L={best_e['L']} recall@10 {best_e['recall']:.2f}, scattered ids identical; "
@@ -3199,19 +3430,26 @@ def search_phases(dev, totals, kern, builds):
         f"identical to RAM) best L={best_scale['L']} recall@10 "
         f"{best_scale['recall']:.2f}; nbr_codes layout, pq_impl, ranked merge and "
         f"layout probes checked; bench rows " + ", ".join(
-            f"{k} L={r['L']} recall@10 {r['recall']:.2f}" for k, r in bench_rows.items()))
+            f"{k} L={r['L']} recall@10 {r['recall']:.2f}" for k, r in bench_rows.items())
+        + "; real corpora " + ", ".join(
+            f"{k} L={r['L']} recall@10 {r['best']['recall']:.2f} (zero distances "
+            f"{r['best']['recall_zero_dists']:.2f})" for k, r in real.items()))
 
 
 def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card "
-                                 "(phases 1-20; see the module docstring).")
+                                 "(phases 1-21; see the module docstring).")
     ap.add_argument("--scale", type=int, default=None, metavar="N",
                     help="instead: build_100m at N points and the scale run "
                          "(scale_run), results in <out>/scale_<N>*.json")
+    ap.add_argument("--real", default=None, choices=sorted(REAL_RUNS),
+                    help="instead: the real-corpus pipeline on a corpus fabricated "
+                         "at its published shape (real_run), results in "
+                         "<out>/real_<NAME>.json")
     ap.add_argument("--out", default=os.path.join("bench_data", "scale"),
-                    help="the scale run's output directory")
+                    help="the scale and real runs' output directory")
     args = ap.parse_args(argv)
     smi = phase_device()
     dev = torch.device("cuda")
@@ -3220,6 +3458,10 @@ def main(argv=None):
     phase_build()
     if args.scale:
         scale_run(dev, args.scale, args.out)
+        log(f"on {smi}")
+        return
+    if args.real:
+        real_run(dev, args.real, args.out)
         log(f"on {smi}")
         return
     kern = phase_kernels(dev)
@@ -3235,6 +3477,7 @@ def main(argv=None):
     finally:
         stop_builds(builds)
     log(f"on {smi}")
+    log(f"total {time.perf_counter() - _T0:.1f}s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -106,3 +106,71 @@ def test_inmemory_recall_matches_jax(built, kind):
     assert abs(rec - j_rec) <= 1.0, (rec, j_rec)
     assert abs(stats.iters - j_stats.iters) <= 1
     assert rec >= 90.0
+
+
+class _CountingLoop:
+    """models/compiled.CapturedLoop stood in on the CPU: each launch runs
+    the plain loop (`run_eager` as it was before the test counted it)."""
+
+    made = 0
+
+    def __init__(self, start, finish, inputs, max_iters, run_eager):
+        self.start, self.finish, self.max_iters = start, finish, max_iters
+        self.run_eager = run_eager
+        _CountingLoop.made += 1
+
+    def launch(self, *inputs):
+        return self.run_eager(self.start, self.finish, inputs, self.max_iters)
+
+    def close(self):
+        pass
+
+
+def test_streaming_row_times_the_steady_state(monkeypatch):
+    """The streaming row's timed spans (the inserts, the searches before and
+    after the churn) hold no eager run and no capture: the card's path on
+    CPU tensors (`compiled.captures` patched, as
+    tests/test_torch_captured_build.py does), each eager run and capture
+    counted inside each span; `inserts_per_s` is the timed points over the
+    timed wall."""
+    from bang_tpu_torch import bench
+    from bang_tpu_torch.models import compiled
+
+    plain = compiled.run_eager
+    counts = {"eager": 0}
+
+    def eager(*args):
+        counts["eager"] += 1
+        return plain(*args)
+
+    monkeypatch.setattr(compiled, "captures", lambda device: True)
+    monkeypatch.setattr(compiled, "run_eager", eager)
+    monkeypatch.setattr(compiled, "CapturedLoop",
+                        lambda *a: _CountingLoop(*a, run_eager=plain))
+    monkeypatch.setattr(_CountingLoop, "made", 0)
+    spans = {}
+    timed = bench._timed
+
+    def counted(label, fn, dev):
+        before = counts["eager"], _CountingLoop.made
+        out, wall = timed(label, fn, dev)
+        spans[label] = (counts["eager"] - before[0], _CountingLoop.made - before[1], wall)
+        return out, wall
+
+    monkeypatch.setattr(bench, "_timed", counted)
+    n, chunk = 1100, 128
+    row = bench.streaming_row(n=n, dim=16, r=8, q=48, chunk=chunk, device="cpu")
+    assert set(spans) == {"ramp", "inserts", "search_pre", "consolidate", "reinsert",
+                          "search_post"}, spans
+    for label in ("inserts", "search_pre", "search_post"):
+        assert spans[label][:2] == (0, 0), (label, spans[label])
+    # outside the clock: the two warm-up batches and searches, the tail (1100 =
+    # 8 x 128 + 76) and the re-insert run the eager loop
+    assert counts["eager"] > 0 and _CountingLoop.made >= 2
+    assert row["inserts_timed"] == (n // chunk - 3) * chunk == 640
+    wall = spans["inserts"][2]
+    assert row["inserts_per_s"] == round(row["inserts_timed"] / wall, 1)
+    assert row["insert_wall_s"] == round(wall, 2)
+    assert row["qps_pre_churn"] == round(48 / spans["search_pre"][2], 1)
+    assert row["n_live"] == row["n_live_expected"]
+    assert row["recall_pre_churn"] >= 90.0 and row["recall_post_churn"] >= 90.0, row

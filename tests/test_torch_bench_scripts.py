@@ -84,3 +84,23 @@ def test_script_runs_on_the_cpu(script, bundle, tmp_path):
     run = {"exp_bloom": _bloom, "exp_large_l": _large_l,
            "profile_base_step": _profile_base, "exp_iter_profile": _iter_profile}[script]
     assert run(bundle, tmp_path)
+
+
+@pytest.mark.parametrize("form", ["flags", "positional"])
+def test_profile_base_step_takes_the_jax_flags(form, tmp_path):
+    """profile_base_step's command line: scripts/profile_base_step.py's
+    flags (--q --beam --r --m --d --n --extra --l-grid --out) onto main's
+    keywords, and the bare OUT form."""
+    import json
+
+    out = tmp_path / "p.json"
+    sizes = ["--q", "32", "--beam", "1", "--r", "16", "--m", "8", "--d", "16", "--n",
+             "20000", "--extra", "8", "--l-grid", "16", "32", "--device", "cpu"]
+    argv = sizes + (["--out", str(out)] if form == "flags" else [str(out)])
+    res = profile_base_step.cli(argv)
+    assert res["shapes"] == {"q": 32, "beam": 1, "r": 16, "m": 8, "d": 16, "n": 20000,
+                             "extra": 8}
+    assert list(res["per_L"]) == ["16", "32"]
+    assert json.loads(out.read_text())["shapes"] == res["shapes"]
+    with pytest.raises(SystemExit):
+        profile_base_step.cli(sizes + ["--out", str(out), str(tmp_path / "other.json")])

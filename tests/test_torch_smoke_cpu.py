@@ -104,6 +104,20 @@ bench._measure_point = lambda *a, **k: {"L": a[5], "beam": a[6], "extra": a[7],
 best = bench._refine_knee(None, None, None, None, None, 10, {"L": 16, "beam": 2,
                                                             "extra": 4, "qps": 1.0})
 assert best["frontier"] and best["L"] == 11, best
+# the real-corpus pipeline over a tiny fabricated siftsmall, no download
+from bang_tpu_torch.scripts import get_real_data
+with tempfile.TemporaryDirectory() as tmp:
+    base = synthetic.make_clustered_data(600, 32, n_clusters=8, dtype=np.uint8, seed=2)
+    queries = base[:20].astype(np.float32) + 1.0
+    gt, _ = synthetic.compute_groundtruth(base.astype(np.float32), queries, 20)
+    pathlib.Path(tmp, "siftsmall").mkdir()
+    for name, arr in (("base.fvecs", base.astype(np.float32)), ("query.fvecs", queries),
+                      ("groundtruth.ivecs", gt.astype(np.int32))):
+        rec = np.empty((len(arr), 1 + arr.shape[1]), "<i4")
+        rec[:, 0], rec[:, 1:] = arr.shape[1], arr.view("<i4")
+        rec.tofile(pathlib.Path(tmp, "siftsmall", "siftsmall_" + name))
+    assert get_real_data.main(["siftsmall", "--dir", tmp, "--skip-download",
+                               "--device", "cpu", "--num-queries", "20"]) == 0
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not any(m.split(".")[0] in ("jax", "bang_tpu") for m in loaded), loaded
 for new in ("ops.bloom", "utils.graph_tools", "harness.serving", "models.streaming",
@@ -112,7 +126,8 @@ for new in ("ops.bloom", "utils.graph_tools", "harness.serving", "models.streami
             "parallel.base_tp", "formats.bigbuild", "formats.preprocess", "entry",
             "scripts.bundles", "scripts.build_100m", "scripts.run_eval", "bench",
             "scripts.merge_bench_json", "scripts.exp_bloom", "scripts.exp_large_l",
-            "scripts.profile_base_step", "scripts.exp_iter_profile"):
+            "scripts.profile_base_step", "scripts.exp_iter_profile",
+            "scripts.get_real_data"):
     assert "bang_tpu_torch." + new in loaded, new
 print("no-jax search ok")
 """
