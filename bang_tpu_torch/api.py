@@ -20,6 +20,22 @@ that every search replays the captured shape; its one blocking wait is the
 readback of the ids, distances and counters (`compiled.readback`).
 `bang_set_searchparams` with new parameters and `bang_unload` free the
 graphs and their memory pools.
+
+ENABLE_GPU_STATS (the reference's stage report, parANN.cu:803-823) turns
+on `timers` (utils/timer.StageTimers), cleared at each bang_query: the
+host spans `query` (the whole call), `pad`, `unpack` (the int64 cast, the
+slicing, the counters), and for the HBM variants `copy_in` (the pinned
+staging and the copy's enqueue), `launch` (the graph's launch and the
+outputs' clones) and `readback` (the pinned copies and the call's one
+wait); the HBM searches' device stages from their stage clock
+(ops/stage_clock), `dev.<stage>` ms, and `dev.graph`, their sum, the
+span from the search's first stamp to its last; and the counter
+`host_waits`, the host's blocking waits (one a captured call). Each
+bang_alloc records, in `timers.setup`, the captured loop's `capture_s`,
+`graph_bytes` and `part_bytes.<part>` and the card's
+`max_memory_reserved`. Base keeps its own stage timers as well
+(models/base.py). Without the bit the spans are no-ops and no stamp is
+captured.
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ from bang_tpu_torch.formats.preprocess import preprocess_queries_mips
 from bang_tpu_torch.models import compiled
 from bang_tpu_torch.utils.config import SearchParams
 from bang_tpu_torch.utils.logging import log_message
+from bang_tpu_torch.utils.timer import StageTimers
 
 # result ids are int64 on output for big-ann-benchmarks compatibility
 # (reference: result_ann_t = unsigned long, bang.h:23).
@@ -52,7 +69,8 @@ class BANGSearch:
     "exactdistance". device: "cuda" (the default; raises when no CUDA
     device is visible) or "cpu" (the plain PyTorch path the CPU tests use).
     `warmup_touched` holds the node count of the last ENABLE_CACHE_WARMUP
-    warm-up (None before one)."""
+    warm-up (None before one); `timers` the last call's ENABLE_GPU_STATS
+    report (the module's docstring)."""
 
     def __init__(self, variant: str = "base", dist_func: int = ENUM_DIST_L2,
                  device="cuda"):
@@ -67,6 +85,7 @@ class BANGSearch:
         self._batch: int | None = None  # bang_alloc's Q
         self.last_stats = None
         self.warmup_touched: int | None = None
+        self.timers = StageTimers(enabled=False)
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -129,6 +148,7 @@ class BANGSearch:
             self._drop_graphs()
         self._params = params
         self._batch = None
+        self.timers.enabled = bool(params.capabilities & ENABLE_GPU_STATS)
 
     def bang_alloc(self, num_queries: int) -> None:
         """Warm up and capture at this batch shape (one eager search, then
@@ -143,8 +163,10 @@ class BANGSearch:
             self.warmup_touched = warmup_touch(
                 self._searcher if self.variant == "base" else self._index)
             log_message(f"cache warmup touched {self.warmup_touched} nodes")
-        self._run(np.zeros((num_queries, self._dim()), np.float32))
+        self.timers.clear()
+        self._run(np.zeros((num_queries, self._dim()), np.float32), num_queries)
         self._batch = num_queries
+        self.timers.setup = self._setup_record() if self.timers.enabled else {}
 
     def bang_init(self) -> None:
         """Per-batch state is initialized inside each search; nothing to do
@@ -155,24 +177,9 @@ class BANGSearch:
         f32), as numpy arrays on the host."""
         if self._params is None:
             raise RuntimeError("call bang_set_searchparams first")
-        queries = np.asarray(queries)
-        if self.dist_func == ENUM_DIST_MIPS and queries.shape[1] == self._dim() - 1:
-            queries = preprocess_queries_mips(queries)
-        nq = queries.shape[0]
-        cap = self._batch
-        if cap is None:
-            log_message(f"bang_query at Q={nq} without bang_alloc after the last "
-                        "bang_set_searchparams: the warm-up falls into this call")
-        elif nq > cap:
-            # batches of the warmed-up shape
-            outs = [self.bang_query(queries[s : s + cap]) for s in range(0, nq, cap)]
-            return (np.concatenate([o[0] for o in outs]),
-                    np.concatenate([o[1] for o in outs]))
-        elif nq < cap:
-            queries = np.concatenate(
-                [queries, np.zeros((cap - nq, queries.shape[1]), queries.dtype)])
-        ids, dists = self._run(queries)
-        return np.asarray(ids)[:nq].astype(RESULT_DTYPE), np.asarray(dists)[:nq]
+        self.timers.clear()
+        with self.timers.stage("query"):
+            return self._query(np.asarray(queries))
 
     def bang_free(self) -> None:
         """Forget bang_alloc's batch shape (the captured graphs stay until
@@ -196,23 +203,72 @@ class BANGSearch:
         if self._index is not None:
             compiled.drop_graphs(self._index)
 
+    def _query(self, queries: np.ndarray):
+        """bang_query's body: a batch larger than bang_alloc's in batches
+        of its shape (the report sums them), a smaller one padded to it."""
+        if self.dist_func == ENUM_DIST_MIPS and queries.shape[1] == self._dim() - 1:
+            queries = preprocess_queries_mips(queries)
+        nq = queries.shape[0]
+        cap = self._batch
+        if cap is None:
+            log_message(f"bang_query at Q={nq} without bang_alloc after the last "
+                        "bang_set_searchparams: the warm-up falls into this call")
+        elif nq > cap:
+            # batches of the warmed-up shape
+            outs = [self._query(queries[s : s + cap]) for s in range(0, nq, cap)]
+            return (np.concatenate([o[0] for o in outs]),
+                    np.concatenate([o[1] for o in outs]))
+        with self.timers.stage("pad"):
+            if cap is not None and nq < cap:
+                queries = np.concatenate(
+                    [queries, np.zeros((cap - nq, queries.shape[1]), queries.dtype)])
+        return self._run(queries, nq)
+
+    def _setup_record(self) -> dict:
+        """What bang_alloc leaves in the report: the captured loop's
+        capture seconds and pool bytes (models/compiled.CapturedLoop), and
+        the card's max_memory_reserved; empty on the CPU."""
+        rec = {}
+        if self._index is not None:
+            loop = compiled.graph_cache(self._index).loops.get(0)
+            if loop is not None:
+                rec = {"capture_s": loop.capture_s, "graph_bytes": loop.graph_bytes,
+                       **{f"part_bytes.{k}": v for k, v in loop.part_bytes.items()}}
+        if self.device.type == "cuda":
+            import torch
+
+            rec["max_memory_reserved"] = torch.cuda.max_memory_reserved(self.device)
+        return rec
+
     def _dim(self) -> int:
         if self.variant == "base":
             return self._searcher.meta.dim
         return self._index.dim
 
-    def _run(self, queries: np.ndarray):
+    def _run(self, queries: np.ndarray, nq: int):
+        """One search of the batch shape; returns the first `nq` answers as
+        host arrays (ids int64)."""
+        t = self.timers
         if self.variant == "base":
-            self._searcher.timers.enabled = bool(
-                self._params.capabilities & ENABLE_GPU_STATS)
+            self._searcher.timers.enabled = t.enabled
             self.last_stats = None
-            return self._searcher.search(queries, self._params)
+            ids, dists = self._searcher.search(queries, self._params)
+            with t.stage("unpack"):
+                return np.asarray(ids)[:nq].astype(RESULT_DTYPE), np.asarray(dists)[:nq]
         if self.variant == "exactdistance":
             from bang_tpu_torch.models.exactdistance import search_exact as search
         else:
             from bang_tpu_torch.models.inmemory import search_inmemory as search
 
-        ids, dists, stats = search(self._index, queries, self._params)
-        ids, dists, values = compiled.readback(ids, dists, stats.device_values())
-        self.last_stats = stats.sync(values.tolist())
-        return ids.numpy(), dists.numpy()
+        ids, dists, stats = search(self._index, queries, self._params, timers=t)
+        with t.stage("readback"):
+            ids, dists, values = compiled.readback(ids, dists, stats.device_values())
+        with t.stage("unpack"):
+            self.last_stats = stats.sync(values.tolist())
+            out = ids.numpy()[:nq].astype(RESULT_DTYPE), dists.numpy()[:nq]
+        if t.enabled:
+            t.counts["host_waits"] += 1 + stats.host_reads
+            for name, ms in (stats.stage_ms or {}).items():
+                t.ms[f"dev.{name}"] += ms
+                t.ms["dev.graph"] += ms
+        return out

@@ -84,8 +84,11 @@ def run_L(engine: BANGSearch, queries, gt_ids, gt_dists, L, k, reps,
             st = engine.last_stats
             print(f"# stats: iters={st.iters} expanded={st.n_expanded} "
                   f"dist_comps={st.n_dist_comps}")
-        if stats and engine.variant == "base":
-            print("# stage timers:\n" + engine._searcher.timers.report())
+        if stats:
+            report = engine.timers.report()
+            if engine.variant == "base":
+                report = engine._searcher.timers.report() + "\n" + report
+            print("# stage timers:\n" + report)
     engine.bang_free()
     return rows
 
@@ -119,8 +122,10 @@ def main(argv=None):
     p.add_argument("--extra-iters", type=int, default=50,
                    help="expansion budget beyond L (reference: 50)")
     p.add_argument("--stats", action="store_true",
-                   help="print per-run search statistics (ENABLE_GPU_STATS analog; "
-                        "base prints its stage timers)")
+                   help="print per-run search statistics and the stage report "
+                        "(ENABLE_GPU_STATS analog: the API's host spans, the HBM "
+                        "variants' device stages and capture records, base's "
+                        "stage timers)")
     p.add_argument("--pipeline", type=int, default=None,
                    help="base variant: query sub-batches kept in flight")
     p.add_argument("--json", action="store_true", help="emit one JSON line per L")

@@ -18,6 +18,12 @@ private memory pool:
   epilogue  `finish(ctx, state)`: the re-rank or the worklist's head, and
             the three counters as one [3] tensor.
 
+Under ENABLE_GPU_STATS (`stats=True`) the three parts also stamp a stage
+clock (ops/stage_clock: one-thread kernels that read the card's
+%globaltimer between the stages), whose buckets the epilogue appends to
+the counters: the stages' device times come back in the call's one
+readback. Without it no stamp is captured.
+
 The static inputs are a tuple of device buffers, each of the dtype and
 shape of the call that captured it: a search's [Q, D] float32 queries; an
 insert's [B] int32 point ids, its medoid as an int32 device scalar and
@@ -96,6 +102,8 @@ import torch
 from bang_tpu_torch.models.traversal import SearchStats, go_flag, step_, traverse
 from bang_tpu_torch.ops import _build
 from bang_tpu_torch.ops.merge import merge_impl
+from bang_tpu_torch.ops.stage_clock import NO_CLOCK, clock_for
+from bang_tpu_torch.utils.timer import NO_TIMERS
 
 
 class GraphCache:
@@ -190,14 +198,23 @@ def readback(*tensors) -> list:
     return outs
 
 
-def run_eager(start, finish, inputs: tuple, max_iters: int):
+def run_eager(start, finish, inputs: tuple, max_iters: int, clock=NO_CLOCK):
     """The plain version of a captured loop: start(*inputs),
     traversal.traverse, finish, eagerly. Returns (finish's tensors,
-    SearchStats)."""
+    SearchStats). The stage clock (ops/stage_clock: a StageClock under
+    ENABLE_GPU_STATS, else NO_CLOCK) takes a captured loop's stamps:
+    `start` first, `tables` after the prologue, the steps' own, `carry`
+    and `rerank` around finish; the SearchStats carry its buckets and the
+    loop's host reads."""
+    clock.start()
     step, state, ctx = start(*inputs)
-    final = traverse(step, state, max_iters)
-    return finish(ctx, final), SearchStats(final.it, final.n_expanded,
-                                           final.n_dist_comps)
+    clock.stamp("tables")
+    final = traverse(step, state, max_iters, clock)
+    clock.stamp("carry")
+    out = finish(ctx, final)
+    clock.stamp("rerank")
+    return out, SearchStats(final.it, final.n_expanded, final.n_dist_comps,
+                            stages=clock.stages(), host_reads=clock.reads)
 
 
 class CapturedLoop:
@@ -209,10 +226,20 @@ class CapturedLoop:
     its tensor's dtype and shape); finish(ctx, final_state) -> tuple of
     tensors its epilogue. `launch(*inputs)` runs it on a call's inputs.
     Records `capture_s`, `graph_bytes` (the memory its pool took) and
-    `part_bytes` (what the capture of each part added to it)."""
+    `part_bytes` (what the capture of each part added to it).
 
-    def __init__(self, start, finish, inputs: tuple, max_iters: int):
+    stats=True (ENABLE_GPU_STATS) captures a stage clock into the graph
+    (ops/stage_clock; its buffer, `clock`, made before the capture): the
+    prologue stamps `start` first and `tables` last, the step its five
+    stamps (traversal.make_step), the epilogue `carry` first and `rerank`
+    after finish, then appends the buckets to the three counters, so they
+    come back in the call's one readback. stats=False stamps NO_CLOCK, so
+    no stamp is captured."""
+
+    def __init__(self, start, finish, inputs: tuple, max_iters: int,
+                 stats: bool = False):
         dev = inputs[0].device
+        self.clock = clock = clock_for(dev, stats)
         self._lib = _build.load_library("graph_loop")
         self._exec = ctypes.c_void_p()
         self._graph = ctypes.c_void_p()
@@ -225,17 +252,23 @@ class CapturedLoop:
         pool = torch.cuda.graph_pool_handle()
 
         def prologue():
+            clock.start()
             step, state, ctx = start(*self.inputs)
-            return step, state, ctx, go_flag(state, max_iters)
+            go = go_flag(state, max_iters)
+            clock.stamp("tables")
+            return step, state, ctx, go
 
         def body():
-            step_(self.step, self.state)
+            step_(self.step, self.state, clock)
             go_flag(self.state, max_iters, out=self.go)
 
         def epilogue():
             s = self.state
             stats = torch.stack([s.it.long(), s.n_expanded, s.n_dist_comps])
-            return (*finish(self.ctx, s), stats)
+            clock.stamp("carry")
+            out = finish(self.ctx, s)
+            clock.stamp("rerank")
+            return (*out, clock.append(stats))
 
         self.part_bytes = {}
 
@@ -258,19 +291,24 @@ class CapturedLoop:
         self.capture_s = time.perf_counter() - t0
         self.graph_bytes = torch.cuda.memory_reserved(dev) - reserved
 
-    def launch(self, *inputs):
+    def launch(self, *inputs, timers=NO_TIMERS):
         """Enqueue one run on `inputs` (numpy or tensors, in the order of
         the static buffers, each copied into its buffer) on the current
         stream; returns (finish's tensors, cloned, and SearchStats),
-        without a host wait."""
-        for buf, x in zip(self.inputs, inputs, strict=True):
-            buf.copy_(device_input(x, buf))
-        with torch.cuda.device(self.inputs[0].device):
-            err = self._lib.graph_loop_launch(
-                self._exec, torch.cuda.current_stream().cuda_stream)
-        _build.check_launch("graph_loop", err)
-        *out, stats = (t.clone() for t in self.out)
-        return out, SearchStats(stats[0], stats[1], stats[2])
+        without a host wait. `timers` (utils/timer.StageTimers) takes the
+        spans `copy_in` (the pinned staging and the copies' enqueue) and
+        `launch` (the graph's launch and the outputs' clones)."""
+        with timers.stage("copy_in"):
+            for buf, x in zip(self.inputs, inputs, strict=True):
+                buf.copy_(device_input(x, buf))
+        with timers.stage("launch"):
+            with torch.cuda.device(self.inputs[0].device):
+                err = self._lib.graph_loop_launch(
+                    self._exec, torch.cuda.current_stream().cuda_stream)
+            _build.check_launch("graph_loop", err)
+            *out, stats = (t.clone() for t in self.out)
+        stages = stats[3:] if len(stats) > 3 else None  # the stage clock's buckets
+        return out, SearchStats(stats[0], stats[1], stats[2], stages=stages)
 
     def close(self) -> None:
         """Free the executable graph, then the captured graphs and their
@@ -280,7 +318,7 @@ class CapturedLoop:
             self._exec = self._graph = ctypes.c_void_p()
             _build.check_launch("graph_loop", err)
         self._graphs = self.step = self.state = self.ctx = self.out = None
-        self.go = self.inputs = None
+        self.go = self.inputs = self.clock = None
 
     def __del__(self):
         try:
@@ -289,17 +327,21 @@ class CapturedLoop:
             pass
 
 
-def search(owner, key, queries, device, max_iters: int, start, finish):
+def search(owner, key, queries, device, max_iters: int, start, finish,
+           stats: bool = False, timers=NO_TIMERS):
     """One search on the CUDA `device` through `owner`'s graph cache: the
     captured loop of `key`, or, at the key's first call, the eager loop,
-    then the capture. Returns (finish's tensors, SearchStats)."""
+    then the capture. stats=True (ENABLE_GPU_STATS, part of the key
+    through the SearchParams) runs and captures the stage clock; `timers`
+    takes a launch's spans (CapturedLoop.launch). Returns (finish's
+    tensors, SearchStats)."""
     cache = graph_cache(owner)
     loop = cache.get(key, 0)
     if loop is not None:
-        return loop.launch(queries)
+        return loop.launch(queries, timers=timers)
     q = (device_queries(queries, torch.empty(0, device=device)),)
-    out = run_eager(start, finish, q, max_iters)
-    cache.put(0, CapturedLoop(start, finish, q, max_iters))
+    out = run_eager(start, finish, q, max_iters, clock_for(device, stats))
+    cache.put(0, CapturedLoop(start, finish, q, max_iters, stats=stats))
     return out
 
 

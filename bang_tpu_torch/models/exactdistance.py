@@ -20,13 +20,14 @@ from bang_tpu_torch.models import compiled
 from bang_tpu_torch.models.entry import entry_points
 from bang_tpu_torch.models.index import DeviceIndex, layout_of
 from bang_tpu_torch.models.traversal import (
-    SearchStats,
     check_params,
+    gpu_stats,
     make_exact_distance_fn,
     start_traversal,
-    traverse,
 )
+from bang_tpu_torch.ops.stage_clock import clock_for
 from bang_tpu_torch.utils.config import SearchParams
+from bang_tpu_torch.utils.timer import NO_TIMERS
 
 
 def prepare_exact(index: DeviceIndex, queries, params: SearchParams):
@@ -75,7 +76,8 @@ def finish_exact(final, params: SearchParams):
     return final.wl_ids[:, : params.k], final.wl_dist[:, : params.k]
 
 
-def search_exact(index: DeviceIndex, queries, params: SearchParams):
+def search_exact(index: DeviceIndex, queries, params: SearchParams,
+                 timers=NO_TIMERS):
     """Batched exact-distance search on the index's device: on a CUDA index
     the captured graph of the index's graph cache (models/compiled.py; the
     first call of a search shape runs the eager loop, then captures), on a
@@ -83,24 +85,30 @@ def search_exact(index: DeviceIndex, queries, params: SearchParams):
 
     queries: [Q, D] tensor or numpy array. Returns (ids [Q, k] int32,
     dists [Q, k] f32 squared L2, SearchStats), on the device, with no host
-    wait."""
+    wait. ENABLE_GPU_STATS and `timers` as in inmemory.search_inmemory."""
     dev = index.vectors.device
     if dev.type != "cuda":
         return search_exact_eager(index, queries, params)
     q = torch.as_tensor(queries)
     (ids, dists), stats = compiled.search(
         index, ("exactdistance", layout_of(index), tuple(q.shape), params), q, dev,
-        params.max_iters,
-        lambda qs: prepare_exact(index, qs, params),
-        lambda _, final: finish_exact(final, params))
+        params.max_iters, *_parts(index, params), stats=gpu_stats(params),
+        timers=timers)
     return ids, dists, stats
+
+
+def _parts(index: DeviceIndex, params: SearchParams):
+    """The search's start and finish, as models/compiled takes them."""
+    return (lambda qs: prepare_exact(index, qs, params),
+            lambda _, final: finish_exact(final, params))
 
 
 def search_exact_eager(index: DeviceIndex, queries, params: SearchParams):
     """search_exact on the eager loop (traversal.traverse, one host read a
     step), on any device: the CPU's search and the captured loop's plain
-    version."""
-    step, state, _ = prepare_exact(index, queries, params)
-    final = traverse(step, state, params.max_iters)
-    return (*finish_exact(final, params),
-            SearchStats(final.it, final.n_expanded, final.n_dist_comps))
+    version (compiled.run_eager, with the stage clock under
+    ENABLE_GPU_STATS)."""
+    (ids, dists), stats = compiled.run_eager(
+        *_parts(index, params), (queries,), params.max_iters,
+        clock_for(index.vectors.device, gpu_stats(params)))
+    return ids, dists, stats

@@ -23,13 +23,15 @@ from bang_tpu_torch.models.index import DeviceIndex, layout_of
 from bang_tpu_torch.models.traversal import (
     SearchStats,
     check_params,
+    gpu_stats,
     make_pq_distance_fn,
     rerank_topk,
     start_traversal,
-    traverse,
 )
 from bang_tpu_torch.ops.adjacency import PlaneAdjacency
+from bang_tpu_torch.ops.stage_clock import clock_for
 from bang_tpu_torch.utils.config import SearchParams
+from bang_tpu_torch.utils.timer import NO_TIMERS
 
 
 def prepare_inmemory(index: DeviceIndex, queries, params: SearchParams):
@@ -77,7 +79,8 @@ def finish_inmemory(index: DeviceIndex, queries_f32, final, params: SearchParams
     return ids, dists, SearchStats(final.it, final.n_expanded, final.n_dist_comps)
 
 
-def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
+def search_inmemory(index: DeviceIndex, queries, params: SearchParams,
+                    timers=NO_TIMERS):
     """Batched PQ-traversal search with exact re-rank on the index's device
     (prepare_inmemory, the traversal, finish_inmemory): on a CUDA index the
     captured graph of the index's graph cache (models/compiled.py; the
@@ -86,7 +89,10 @@ def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
 
     queries: [Q, D] tensor or numpy array. Returns (ids [Q, k] int32,
     dists [Q, k] f32 squared L2, SearchStats), on the device, with no host
-    wait.
+    wait. With ENABLE_GPU_STATS in params.capabilities the search runs
+    (and captures) its stage clock (ops/stage_clock; the SearchStats carry
+    the buckets) and `timers` (utils/timer.StageTimers) takes a launch's
+    spans.
 
     Under entry_mode="sampled" the entries and their worklist seeds come
     from exact distances to a strided sample (models/entry.py); the walk
@@ -97,17 +103,24 @@ def search_inmemory(index: DeviceIndex, queries, params: SearchParams):
     q = torch.as_tensor(queries)
     (ids, dists), stats = compiled.search(
         index, ("inmemory", layout_of(index), tuple(q.shape), params), q, dev,
-        params.max_iters,
-        lambda qs: prepare_inmemory(index, qs, params),
-        lambda queries_f32, final: finish_inmemory(index, queries_f32, final,
-                                                   params)[:2])
+        params.max_iters, *_parts(index, params), stats=gpu_stats(params),
+        timers=timers)
     return ids, dists, stats
+
+
+def _parts(index: DeviceIndex, params: SearchParams):
+    """The search's start and finish, as models/compiled takes them."""
+    return (lambda qs: prepare_inmemory(index, qs, params),
+            lambda queries_f32, final: finish_inmemory(index, queries_f32, final,
+                                                       params)[:2])
 
 
 def search_inmemory_eager(index: DeviceIndex, queries, params: SearchParams):
     """search_inmemory on the eager loop (traversal.traverse, one host read
     a step), on any device: the CPU's search and the captured loop's plain
-    version."""
-    step, state, queries_f32 = prepare_inmemory(index, queries, params)
-    final = traverse(step, state, params.max_iters)
-    return finish_inmemory(index, queries_f32, final, params)
+    version (compiled.run_eager, with the stage clock under
+    ENABLE_GPU_STATS)."""
+    (ids, dists), stats = compiled.run_eager(
+        *_parts(index, params), (queries,), params.max_iters,
+        clock_for(index.vectors.device, gpu_stats(params)))
+    return ids, dists, stats

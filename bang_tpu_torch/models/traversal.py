@@ -46,6 +46,7 @@ from bang_tpu_torch.ops.merge import init_worklist, merge_worklist, select_paren
 from bang_tpu_torch.ops.pq import pack_tables, pq_distance_tables
 from bang_tpu_torch.ops.pq import pq_lookup as pq_lookup_f32
 from bang_tpu_torch.ops.pq_kernels import frontier_decode_plain, frontier_lookup, pq_lookup
+from bang_tpu_torch.ops.stage_clock import NO_CLOCK, STAGES
 from bang_tpu_torch.ops.visited import exact_new_mask, first_occurrence_mask_blocks
 
 
@@ -67,17 +68,27 @@ class SearchStats:
     """Search statistics (iterations, expanded parents, distance
     computations). The counters stay on the device until first read;
     `sync()` fetches all three in one copy, so a search call does not
-    block."""
+    block. Under ENABLE_GPU_STATS a search also gives `stages`, its stage
+    clock's buckets (ops/stage_clock.STAGES, ns, on the device), read in
+    the same copy, and `host_reads`, the reads of its loop flag that the
+    eager loop made (a captured loop makes none)."""
 
-    __slots__ = ("_values", "_fetched")
+    __slots__ = ("_values", "_fetched", "_stages", "host_reads")
 
-    def __init__(self, iters, n_expanded, n_dist_comps):
+    def __init__(self, iters, n_expanded, n_dist_comps, stages=None, host_reads=0):
         self._values = (iters, n_expanded, n_dist_comps)
-        self._fetched = not any(isinstance(v, torch.Tensor) for v in self._values)
+        self._stages = stages
+        self.host_reads = host_reads
+        self._fetched = not any(isinstance(v, torch.Tensor)
+                                for v in (*self._values, stages))
 
     def device_values(self) -> torch.Tensor:
-        """The three counters as one int64 [3] tensor on their device."""
-        return torch.stack([torch.as_tensor(v).long() for v in self._values])
+        """The three counters as one int64 [3] tensor on their device, the
+        stage buckets after them when there are any."""
+        values = torch.stack([torch.as_tensor(v).long() for v in self._values])
+        if self._stages is None:
+            return values
+        return torch.cat([values, torch.as_tensor(self._stages)])
 
     def sync(self, values=None) -> "SearchStats":
         """Fetch the counters, or take `values`, the host copy of
@@ -85,7 +96,9 @@ class SearchStats:
         if not self._fetched:
             if values is None:
                 values = self.device_values().tolist()
-            self._values = tuple(int(v) for v in values)
+            self._values = tuple(int(v) for v in values[:3])
+            if self._stages is not None:
+                self._stages = [int(v) for v in values[3:]]
             self._fetched = True
         return self
 
@@ -101,6 +114,14 @@ class SearchStats:
     def n_dist_comps(self) -> int:
         return self.sync()._values[2]
 
+    @property
+    def stage_ms(self):
+        """{stage: device ms} of the search's stage clock, None without
+        one."""
+        if self.sync()._stages is None:
+            return None
+        return {name: ns / 1e6 for name, ns in zip(STAGES, self._stages)}
+
     def __repr__(self):
         return (f"SearchStats(iters={self.iters}, n_expanded={self.n_expanded}, "
                 f"n_dist_comps={self.n_dist_comps})")
@@ -111,7 +132,7 @@ def check_params(params) -> None:
     Both visited modes and the four pq_impl values are served
     (SearchParams checks their names; make_pq_distance_fn maps pq_impl)."""
     # both bits are served (api.BANGSearch): ENABLE_GPU_STATS turns base's
-    # stage timers on and gives the HBM variants last_stats;
+    # stage timers on and gives the HBM variants their stage report;
     # ENABLE_CACHE_WARMUP runs utils/graph_tools.warmup_touch in bang_alloc
     served = ENABLE_GPU_STATS | ENABLE_CACHE_WARMUP
     if params.capabilities & ~served:
@@ -120,6 +141,11 @@ def check_params(params) -> None:
             f"ENABLE_GPU_STATS ({ENABLE_GPU_STATS:#x}) and ENABLE_CACHE_WARMUP "
             f"({ENABLE_CACHE_WARMUP:#x})"
         )
+
+
+def gpu_stats(params) -> bool:
+    """Whether params ask for the stage report (ENABLE_GPU_STATS)."""
+    return bool(params.capabilities & ENABLE_GPU_STATS)
 
 
 def init_state(q: int, l: int, max_iters: int, entries: torch.Tensor,
@@ -184,7 +210,13 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
 
     The visited list and the bloom filter are written in place (the old
     state does not read them again); the rest of the new state is new
-    tensors, which `step_` writes into the old state's buffers."""
+    tensors, which `step_` writes into the old state's buffers.
+
+    `step(state, clock)` stamps a stage clock (ops/stage_clock.StageClock
+    under ENABLE_GPU_STATS, else NO_CLOCK, whose stamps do nothing):
+    `carry` first (what ran since the last step's `select`), then
+    `frontier`, `visited`, `merge` and `select` after each of its stages:
+    five stamps a step."""
     frontier_fn = getattr(distance_fn, "frontier_fn", None)
     if callable(adj):
         r = adj.r
@@ -199,13 +231,16 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
     else:
         raise ValueError("need an adjacency table or a distance_fn.frontier_fn")
 
-    def step(state: TraversalState) -> TraversalState:
+    def step(state: TraversalState, clock=NO_CLOCK) -> TraversalState:
+        clock.stamp("carry")
         q = state.parents.shape[0]
         if frontier_fn is not None:
             cand, raw = frontier_fn(state.parents)
         else:
             cand = fetch_adj(state.parents)  # [Q, beam*R]
-            raw = None
+            # the distances read neither visited set: computed before them
+            raw = distance_fn(cand, state.parents)
+        clock.stamp("frontier")
         # repeat_interleave with an int count reads its output size back
         cand_valid = state.parent_valid[:, :, None].expand(q, beam, r).reshape(q, beam * r)
 
@@ -220,18 +255,19 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
             new = new & first_occurrence_mask_blocks(cand, beam)
         if use_bloom:
             bloom_insert(state.bloom, cand, new, pos)
-        if raw is None:
-            raw = distance_fn(cand, state.parents)
         dist = torch.where(new, raw, torch.full_like(raw, float("inf")))
+        clock.stamp("visited")
         wl_dist, wl_ids, wl_vis = merge_worklist(
             state.wl_dist, state.wl_ids, state.wl_vis, dist, cand
         )
+        clock.stamp("merge")
         parents, parent_valid, active, wl_vis = select_parents_beam(
             wl_dist, wl_ids, wl_vis, beam
         )
         visited = state.visited_ids
         vals = torch.where(parent_valid, parents, torch.full_like(parents, INVALID_ID))
         visited.index_copy_(1, slot_index(state.it, beam), vals)
+        clock.stamp("select")
         return TraversalState(
             wl_dist, wl_ids, wl_vis, parents, parent_valid, visited, state.bloom,
             active, state.it + 1,
@@ -242,12 +278,13 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
     return step
 
 
-def step_(step, state: TraversalState) -> TraversalState:
+def step_(step, state: TraversalState, clock=NO_CLOCK) -> TraversalState:
     """One iteration written into `state`'s own buffers: the body of the
     captured loop (models/compiled.py), replayed on the same buffers, as
     JAX's while_loop reuses its donated carry. Its WHILE node runs it only
-    while go_flag holds, as JAX's loop runs its body. Returns `state`."""
-    new = step(state)
+    while go_flag holds, as JAX's loop runs its body. `clock`: the stage
+    clock the step stamps (make_step). Returns `state`."""
+    new = step(state, clock)
     for old, value in zip(state, new):
         if value is not old:  # the visited list and the bloom filter are
             old.copy_(value)  # written in place already
@@ -286,14 +323,17 @@ def start_traversal(adj, distance_fn, medoid: int, q: int, l: int,
     return step, init_state(q, l, max_iters, entry, entry_dists, beam, use_bloom)
 
 
-def traverse(step, state: TraversalState, max_iters: int) -> TraversalState:
+def traverse(step, state: TraversalState, max_iters: int,
+             clock=NO_CLOCK) -> TraversalState:
     """Step until `max_iters` iterations or until no query has an unvisited
     worklist entry left; returns the final state. The captured loop's plain
     version: the host counts the iterations (the device's `it` starts at 1
-    and gains one a step) and reads `active.any()` once per iteration."""
+    and gains one a step) and reads `active.any()` once per iteration.
+    `clock`: the stage clock the steps stamp (make_step), which also counts
+    those reads (`clock.reads`)."""
     it = 1
-    while it < max_iters and bool(state.active.any()):
-        state = step(state)
+    while it < max_iters and clock.read(state.active.any()):
+        state = step(state, clock)
         it += 1
     return state
 

@@ -52,6 +52,7 @@ SIGNATURES = {
     "frontier_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "row_gather": (_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _P, _P),
     "graph_loop": (_P, _P),
+    "stage_clock": (_P, _I, _P, _P),
 }
 # the other entry points of a source, with their argtypes (-> int cudaError_t)
 OTHER_ENTRY_POINTS = {
@@ -71,7 +72,7 @@ MAX_LOOKUP_CHUNKS = MAX_PACKED_CHUNKS - 1  # 453
 _LOADED: dict[str, ctypes.CDLL] = {}
 # the wrappers whose kernels count their launches, in their counter slots
 COUNTED = ("pq_lookup", "frontier_lookup", "exact_frontier", "lookup_packed",
-           "frontier_packed", "row_gather")
+           "frontier_packed", "row_gather", "stage_clock")
 _COUNTERS: dict[int, torch.Tensor] = {}  # device index -> int64 [len(COUNTED)]
 _WRAPPERS: dict[str, object] = {}  # name -> wrapper, once it has launched
 BUILD_INFO: dict[str, dict] = {}  # name -> {"seconds", "cached", "log"}

@@ -58,6 +58,7 @@ from bang_tpu_torch.ops.probe_kernels import (
     row_gather,
     run_lookup,
 )
+from bang_tpu_torch.ops.stage_clock import stage_clock
 
 MAX_BEAM = 16  # SearchParams.beam_width's bound
 
@@ -196,8 +197,8 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts of every kernel in KERNELS, on the cards
-    too."""
+    """Zero the launch counts of every kernel in KERNELS and of the stage
+    clock's stamps (ops/stage_clock), on the cards too."""
     _build.collect_launches()
-    for k in KERNELS:
+    for k in (*KERNELS, stage_clock):
         k.launches = 0

@@ -38,6 +38,7 @@ import contextlib
 import torch
 
 from bang_tpu_torch.scripts import _common as cm
+from bang_tpu_torch.utils.timer import RANGE_PREFIX
 
 N, Q, L, BEAM, R, M, MI = 1_000_000, 10_000, 12, 2, 64, 64, 24
 TAG = "exp_iter_profile"
@@ -83,17 +84,24 @@ def traversal_stages(mask, traversal=None):
             setattr(traversal, name, fn)
 
 
+def _is_range(name, stage_names) -> bool:
+    """Whether a device-timeline event named `name` is a profiler range:
+    one of `stage_names` or a stage-report span (`bang.<span>`)."""
+    return name in stage_names or name.startswith(RANGE_PREFIX)
+
+
 def read_profile(prof, label, stage_names):
     """Print the device ms of each kernel name (the top 16) and of each
     profiler range in `stage_names` (the kernels it launched) over a
     profiled call; returns (kernel ms in all, {range: [ms, calls]}, the
     (ms, calls, name) rows of every kernel, largest first)."""
-    # the stage ranges also appear on the device's timeline under their
-    # own names: they are spans, not kernels
+    # the stage ranges, and the stage report's spans (utils/timer), also
+    # appear on the device's timeline under their own names: they are
+    # spans, not kernels
     kernels = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0 and e.key not in stage_names),
+         and e.self_device_time_total > 0 and not _is_range(e.key, stage_names)),
         reverse=True)
     for ms, count, key in kernels[:16]:
         log(f"profile {ms:10.3f} ms {count:6d} calls  {key[:100]}")
@@ -115,7 +123,7 @@ def busy_ms(prof, stage_names):
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.name not in stage_names and e.time_range.end > e.time_range.start)
+        and not _is_range(e.name, stage_names) and e.time_range.end > e.time_range.start)
     if not spans:
         raise AssertionError("the profiler recorded no kernel on the card")
     busy, (lo, hi) = 0.0, spans[0]

@@ -1,14 +1,25 @@
-"""Wall-clock and per-stage timers (port of bang_tpu/utils/timer.py).
+"""Per-stage timers, the ENABLE_GPU_STATS report (port of
+bang_tpu/utils/timer.py).
 
-The reference times host work with a gettimeofday pair (CPUTimer) and device
-work with a cudaEvent pair (GPUTimer, BANG_Base/utils/timer.h); its stage
-report has 8-9 buckets (BANG_Base/bang_search.cu:1028-1051). Here a stage is
-a host-clock span; `stage(name, block_on=...)` ends the span only once the
-device has finished the work queued before it: an event recorded on the
-current stream of each CUDA tensor in `block_on`, then synchronized. The
-JAX package waits on `jax.block_until_ready` at the same point. PyTorch
-returns before the card finishes, so a stage that did not wait would time
-the enqueue only.
+The reference's stage report has 8-9 buckets (BANG_Base/bang_search.cu:
+1028-1051, BANG_Inmemory/parANN.cu:803-823), timed on the host with a
+gettimeofday pair and on the device with cudaEvent pairs. Here one
+StageTimers holds a report:
+
+  ms      host-clock spans (`stage(name)`, milliseconds), and device
+          times that a caller adds in (the HBM searches' stage clock,
+          ops/stage_clock, as `dev.<stage>`; api.BANGSearch);
+  counts  counters (the host's blocking waits a call, `host_waits`);
+  setup   what the last bang_alloc recorded (capture seconds, graph
+          bytes), kept by `clear()`.
+
+A span ends when its body returns: PyTorch returns before the card
+finishes, so a span of device work times its enqueue, unless the body
+waits (the API's `readback` span holds the one wait of a call). While a
+torch.profiler session records, each span also opens a profiler range
+named `bang.<name>`, nested as the spans are, so a device trace puts its
+gaps down to the program's spans. A disabled StageTimers records nothing
+and opens no range: `stage` returns a shared null context.
 """
 
 from __future__ import annotations
@@ -19,35 +30,8 @@ import time
 
 import torch
 
-
-class CPUTimer:
-    """Start/stop accumulating wall-clock timer (milliseconds)."""
-
-    def __init__(self) -> None:
-        self.total_ms = 0.0
-        self._t0 = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        dt = (time.perf_counter() - self._t0) * 1000.0
-        self.total_ms += dt
-        self._t0 = None
-        return dt
-
-
-def wait_for(tensors) -> None:
-    """Block the host until the work queued so far on the current stream of
-    each CUDA tensor's device has run: an event recorded there, then
-    synchronized. CPU tensors are ready when their op returns."""
-    if isinstance(tensors, torch.Tensor):
-        tensors = (tensors,)
-    for t in tensors:
-        if t.device.type == "cuda":
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(t.device))
-            ev.synchronize()
+RANGE_PREFIX = "bang."  # the profiler ranges' names: RANGE_PREFIX + the span's
+_OFF = contextlib.nullcontext()
 
 
 class StageTimers:
@@ -56,21 +40,34 @@ class StageTimers:
     def __init__(self, enabled: bool = True) -> None:
         self.enabled = enabled
         self.ms = collections.defaultdict(float)
+        self.counts = collections.defaultdict(int)
+        self.setup: dict = {}
+
+    def stage(self, name: str):
+        """A context that adds the span of its body to `ms[name]`, inside a
+        profiler range `bang.<name>` while a profiler records; a no-op when
+        disabled."""
+        return self._span(name) if self.enabled else _OFF
 
     @contextlib.contextmanager
-    def stage(self, name: str, block_on=None):
-        """Add the span of the body to `ms[name]`; with `block_on` (a tensor
-        or a sequence of them) the span ends after the device has run what
-        was queued for them (`wait_for`)."""
-        if not self.enabled:
+    def _span(self, name: str):
+        with (torch.profiler.record_function(RANGE_PREFIX + name)
+              if torch.autograd._profiler_enabled() else _OFF):
+            t0 = time.perf_counter()
             yield
-            return
-        t0 = time.perf_counter()
-        yield
-        if block_on is not None:
-            wait_for(block_on)
-        self.ms[name] += (time.perf_counter() - t0) * 1000.0
+            self.ms[name] += (time.perf_counter() - t0) * 1000.0
+
+    def clear(self) -> None:
+        """Forget the spans and counters (a new call); `setup` stays."""
+        self.ms.clear()
+        self.counts.clear()
 
     def report(self) -> str:
         lines = [f"{name:32s} {ms:10.3f} ms" for name, ms in sorted(self.ms.items())]
+        lines += [f"{name:32s} {n:10d}" for name, n in sorted(self.counts.items())]
+        lines += [f"{name:32s} {v:10.3f}" if isinstance(v, float) else f"{name:32s} {v:10d}"
+                  for name, v in sorted(self.setup.items())]
         return "\n".join(lines)
+
+
+NO_TIMERS = StageTimers(enabled=False)  # what a call without a report passes

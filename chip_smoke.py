@@ -8,11 +8,12 @@
 Phases, each printing progress; any failure raises and exits non-zero:
   1. device   — require CUDA; print the card's name and power limit
                 (nvidia-smi), torch, CUDA and nvcc versions.
-  2. build    — build the six sources of bang_tpu_torch/csrc: the five
-                kernel sources (six wrappers: lookup_packed launches K1's)
-                and graph_loop.cu (the captured search's WHILE node,
-                models/compiled.py), one nvcc per source, all started
-                together.
+  2. build    — build the seven sources of bang_tpu_torch/csrc: the five
+                kernel sources (six wrappers: lookup_packed launches K1's),
+                graph_loop.cu (the captured search's WHILE node,
+                models/compiled.py) and stage_clock.cu (ENABLE_GPU_STATS's
+                stamp, ops/stage_clock.py), one nvcc per source, all
+                started together.
   3. kernels  — K1 pq_lookup, K2 frontier_lookup and K3 exact_frontier
                 against their plain PyTorch versions on the card at the main
                 paths' shapes and others: ids bit-exact; K1 and K2 (both on
@@ -142,6 +143,19 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 eager) before the churn and after each step; inserts/s,
                 walls, pools, one insert and one search profiled on each.
                 No kernel launches.
+ 22. stats    — ENABLE_GPU_STATS on the captured HBM searches (after 19),
+                at the benchmark cells' search settings (gpubench/configs:
+                in-memory L=40 beam 2 extra 11, exact L=10 beam 1 extra 6)
+                on phase 4's bundle, loaded once a search and captured
+                without the stats, then with them: ids and distances
+                identical bit for bit; the stage clock's stamps (ops/stage_clock, counted by
+                the kernel on the card) 5 a step plus 2 in the prologue and
+                2 in the epilogue, 5 (iters - 1) + 4, a stats-on call, none
+                a stats-off call; one host wait a stats-on call; the graph's
+                device span from the stamps (`dev.graph`) within 3% of a
+                CUDA event pair around the same launch (median of 5, the
+                queries on the card); the stage split printed. Then
+                %globaltimer's step, from 200 pairs of back-to-back stamps.
  11. bloom    — visited_mode="bloom" (ops/bloom.py, plain PyTorch) on each
                 search of the bundle: in-memory fused L in {64, 128, 256}
                 (K2), in-memory scattered L=512 (K1), exact fused L in {30,
@@ -325,6 +339,10 @@ EXACT_L_SWEEP = (10, 16, 30, 60, 100)
 EXACT_PROFILE_L = 100  # the exact L whose fused search is profiled
 VAMANA = {"l_build": 48, "batch": 4096, "alpha": 1.44, "n_passes": 2, "seed": 0}
 RECALL_TARGET = 90.0
+# phase 22: the benchmark cells' search settings (gpubench/configs/*.json)
+STATS_POINTS = (("inmemory", 40), ("exactdistance", 10))
+STATS_CALLS = 5
+SPIN_CYCLES = 5_000_000  # ~3 ms of the card's clock: longer than a launch's enqueue
 # base: bench.py::sweep_base's operating point (bench.py:502-503), the graph
 # read into RAM as in the reference's configuration
 BASE_L_SWEEP = (30, 45, 60, 90)
@@ -526,9 +544,11 @@ def phase_build():
     from bang_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    # the kernels' sources and the captured search's WHILE node (graph_loop)
+    # the kernels' sources, the captured search's WHILE node (graph_loop)
+    # and the stage clock's stamp (stage_clock)
     libraries = sorted({os.path.basename(src)[: -len(".cu")]
-                        for src, _, _ in KERNEL_SOURCES.values()} | {"graph_loop"})
+                        for src, _, _ in KERNEL_SOURCES.values()}
+                       | {"graph_loop", "stage_clock"})
     _build.build_libraries(libraries)
     for name in libraries:
         info = _build.BUILD_INFO[name]
@@ -2814,6 +2834,110 @@ def _captured_hbm(fn, index, queries, params):
     return _hbm_call(fn, index, queries, params)
 
 
+def _stats_params(engine, variant, L, stats, n):
+    """The engine's search at L and BEAM_EXTRA's beam and extra, with or
+    without ENABLE_GPU_STATS, captured at Q=n (new parameters drop the
+    last capture)."""
+    from bang_tpu_torch.constants import ENABLE_GPU_STATS
+
+    beam, extra = BEAM_EXTRA[variant]
+    engine.bang_set_searchparams(K, L, beam_width=beam, extra_iters=extra,
+                                 capabilities=ENABLE_GPU_STATS if stats else 0)
+    engine.bang_alloc(n)
+
+
+def _graph_against_events(engine, queries_dev):
+    """(dev.graph ms, event ms) of one launch of the engine's captured loop
+    on queries already on the card: the stage clock's span beside a CUDA
+    event pair recorded around the launch. A spin kernel runs first, so
+    the host has enqueued the launch before the first event fires: the
+    pair holds the card's time, not the host's enqueue (about 0.2 ms a
+    launch on an H100, 4% of an exact L=10 call)."""
+    from bang_tpu_torch.models import compiled
+
+    loop = compiled.graph_cache(engine._index).loops[0]
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    e0.record()
+    _, stats = loop.launch(queries_dev)
+    e1.record()
+    e1.synchronize()
+    return sum(stats.sync().stage_ms.values()), e0.elapsed_time(e1)
+
+
+def _timer_step(dev, n=200):
+    """%globaltimer's step: the ns between two back-to-back stamps, n
+    times; returns (the distinct readings, their greatest common divisor)."""
+    import math
+
+    from bang_tpu_torch.ops.stage_clock import StageClock
+
+    clock = StageClock(dev)
+    deltas = []
+    for _ in range(n):
+        clock.start()
+        clock.stamp("tables")
+        deltas.append(int(clock.buf[0]))
+    return sorted(set(deltas)), math.gcd(*deltas)
+
+
+def phase_stats(prefix, dev, totals):
+    """Phase 22 (module docstring); returns its rows."""
+    from bang_tpu_torch.api import BANGSearch
+    from bang_tpu_torch.formats.bin_io import load_bin
+    from bang_tpu_torch.ops import stage_clock as sc
+
+    queries = load_bin(prefix + "_query.bin", np.uint8)
+    queries_dev = torch.as_tensor(queries, device=dev).float()
+    kernels = {"inmemory": {"frontier_lookup"}, "exactdistance": {"exact_frontier"}}
+    rows = {}
+    for variant, L in STATS_POINTS:
+        label = f"stats {variant} L={L}"
+        engine = BANGSearch(variant, device=dev)
+        engine.bang_load(prefix)  # once: the stats-off search first, then the stats-on
+        _stats_params(engine, variant, L, False, len(queries))
+        ids_off, d_off = counted(f"{label} off", kernels[variant],
+                                 lambda: engine.bang_query(queries), totals)
+        iters_off = engine.last_stats.iters
+        if sc.launches():
+            raise AssertionError(f"{label}: a stats-off call launched "
+                                 f"{sc.stage_clock.launches} stamps")
+        _stats_params(engine, variant, L, True, len(queries))
+        ids_on, d_on = counted(f"{label} on", kernels[variant],
+                               lambda: engine.bang_query(queries), totals)
+        iters, stamps = engine.last_stats.iters, sc.launches()
+        if not (np.array_equal(ids_on, ids_off) and np.array_equal(d_on, d_off)
+                and iters == iters_off):
+            raise AssertionError(f"{label}: answers with the stats differ from without")
+        if stamps != 5 * (iters - 1) + 4:
+            raise AssertionError(f"{label}: {stamps} stamps at {iters} iterations, "
+                                 f"expected {5 * (iters - 1) + 4}")
+        waits = engine.timers.counts["host_waits"]
+        if waits != 1:
+            raise AssertionError(f"{label}: {waits} host waits")
+        split = {k: round(v, 4) for k, v in sorted(engine.timers.ms.items())}
+        pairs = [_graph_against_events(engine, queries_dev) for _ in range(STATS_CALLS)]
+        ratios = sorted(g / e for g, e in pairs)
+        ratio = ratios[len(ratios) // 2]
+        log(f"{label}: ids and distances identical, {iters} iterations, {stamps} "
+            f"stamps, 1 host wait; report ms {split}; setup {engine.timers.setup}; "
+            "dev.graph / event ms " + ", ".join(f"{g:.4f}/{e:.4f}" for g, e in pairs)
+            + f" (median ratio {ratio:.4f})")
+        if abs(ratio - 1) > 0.03:
+            raise AssertionError(f"{label}: dev.graph / event pair {ratio:.4f}, "
+                                 "outside 3%")
+        rows[variant] = {"L": L, "iters": iters, "stamps": stamps, "split_ms": split,
+                         "graph_event_ms": pairs}
+        engine.bang_unload()
+        torch.cuda.empty_cache()
+    readings, step = _timer_step(dev)
+    log(f"stats: %globaltimer back-to-back stamps read {readings[:12]} ns "
+        f"({len(readings)} distinct), step {step} ns; on {_smi()}")
+    rows["timer_step_ns"] = step
+    return rows
+
+
 def _nbr_layout_points(ixs, queries):
     """Phase 20, layouts: at each L of NBR_L the neighbor-aligned layout
     through phase 18's eager-captured pattern (_captured_point), its ids,
@@ -3407,6 +3531,9 @@ def search_phases(dev, totals, kern, builds):
         counted("captured build and streaming", set(),
                 lambda: phase_captured_loops(dev), totals)
         log(f"phase 19 (captured loops) {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase_stats(prefix, dev, totals)
+        log(f"phase 22 (stats) {time.perf_counter() - t0:.1f}s")
         phase_bloom(prefix, dev, totals)
         phase_warmup_serving(prefix, dev, totals)
         best_s = phase_sharded(prefix, dev, totals, kern, base_rows)

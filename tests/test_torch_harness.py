@@ -17,6 +17,7 @@ from bang_tpu_torch.api import BANGSearch
 from bang_tpu_torch.constants import ENABLE_GPU_STATS
 from bang_tpu_torch.formats.bin_io import load_bin_auto, save_bin
 from bang_tpu_torch.harness import driver
+from bang_tpu_torch.ops.stage_clock import STAGES
 from bang_tpu_torch.utils import timer
 from bang_tpu_torch.utils.config import DATASET_PRESETS
 
@@ -43,11 +44,14 @@ def test_driver_single_mode(tiny_index, capsys, variant):
     assert float(best[0].split("\t")[3]) >= 85.0
     row = json.loads(next(ln for ln in out.splitlines() if ln.startswith("{")))
     assert row["L"] == 48 and row["variant"] == variant and row["device"] == "cpu"
+    assert out.count("# stage timers:") == 2
+    assert all(s in out for s in ("query", "unpack"))
     if variant == "base":
-        assert out.count("# stage timers:") == 2
         assert all(s in out for s in ("host_gather", "d2h_parents", "dispatch", "wall"))
     else:
         assert out.count("# stats: iters=") == 2
+        assert all(s in out for s in ("dev.graph", "dev.frontier", "readback",
+                                      "host_waits"))
 
 
 def test_driver_dataset_preset_and_pipeline(tiny_index, capsys, monkeypatch):
@@ -142,61 +146,93 @@ def test_partial_and_oversized_batches(tiny_index, variant):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_gpu_stats_capability_served(tiny_index, variant):
     """ENABLE_GPU_STATS works for every variant, as in the JAX package: base
-    fills its stage timers, the HBM variants report last_stats."""
+    fills its stage timers, the HBM variants report last_stats and, on the
+    eager loop, every device stage (the plain stage clock), each >= 0,
+    summing to dev.graph, no more than the call's `query` span; the host
+    waits are the loop's flag reads and the readback. Answers are
+    bit-identical with the stats off, which records nothing."""
     prefix = tiny_index["prefix"]
     queries = load_bin_auto(prefix + "_query.bin", np.float32)[:16]
     s = _engine(prefix, variant, capabilities=ENABLE_GPU_STATS)
     s.bang_alloc(16)
-    ids, _ = s.bang_query(queries)
+    ids, dists = s.bang_query(queries)
     plain = _engine(prefix, variant)
-    np.testing.assert_array_equal(ids, plain.bang_query(queries)[0])
+    p_ids, p_dists = plain.bang_query(queries)
+    np.testing.assert_array_equal(ids, p_ids)
+    np.testing.assert_array_equal(dists, p_dists)
+    assert not plain.timers.ms and not plain.timers.counts
+    ms = s.timers.ms
+    assert {"query", "pad", "unpack"} <= set(ms)
     if variant == "base":
         assert s.last_stats is None
         assert set(s._searcher.timers.ms) == {"host_gather", "d2h_parents", "dispatch",
                                               "wall"}
+        assert not any(name.startswith("dev.") for name in ms)
     else:
-        assert s.last_stats.iters > 1 and s.last_stats.n_expanded > 0
+        st = s.last_stats
+        assert st.iters > 1 and st.n_expanded > 0
+        dev = {name: ms[f"dev.{name}"] for name in STAGES}
+        assert all(v >= 0 for v in dev.values()) and "readback" in ms
+        assert sum(dev.values()) == pytest.approx(ms["dev.graph"])
+        assert ms["dev.graph"] <= ms["query"]
+        assert s.timers.counts["host_waits"] == 1 + st.host_reads
+        assert st.host_reads in (st.iters, st.iters - 1)
+        assert not any(name.startswith("dev.") for name in plain.timers.ms)
 
 
-class _FakeEvent:
-    made = []
+@pytest.mark.parametrize("variant", ["inmemory", "exactdistance"])
+def test_stats_spans_nest_in_a_profiler_range(tiny_index, variant, monkeypatch):
+    """Under a running torch.profiler each span of bang_query is a
+    `bang.<span>` range inside `bang.query`; without one no range opens."""
+    from torch.profiler import ProfilerActivity, profile
 
-    def __init__(self):
-        self.calls = []
-        _FakeEvent.made.append(self)
+    prefix = tiny_index["prefix"]
+    queries = load_bin_auto(prefix + "_query.bin", np.float32)[:12]
+    s = _engine(prefix, variant, capabilities=ENABLE_GPU_STATS)
+    s.bang_alloc(16)
+    opened = []
+    rf = torch.profiler.record_function
 
-    def record(self, stream):
-        self.calls.append(("record", stream))
+    def counted(name, *args):
+        opened.append(name)
+        return rf(name, *args)
 
-    def synchronize(self):
-        self.calls.append(("synchronize",))
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    s.bang_query(queries)
+    assert opened == [] and s.timers.ms["query"] > 0
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s.bang_query(queries)
+    spans = {e.name: e.time_range for e in prof.events() if e.name.startswith("bang.")}
+    assert {"bang.query", "bang.pad", "bang.readback", "bang.unpack"} <= set(spans)
+    outer = spans.pop("bang.query")
+    assert all(outer.start <= r.start and r.end <= outer.end for r in spans.values())
 
 
-class _FakeCudaTensor:
-    device = torch.device("cuda", 0)
-
-
-def test_stage_waits_on_a_cuda_event(monkeypatch):
-    """A stage that blocks on a CUDA tensor records an event on that
-    device's current stream and synchronizes it before the span ends; CPU
-    tensors need no wait; a disabled timer records nothing."""
-    monkeypatch.setattr(_FakeEvent, "made", [])
-    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: f"stream of {dev}")
-    t = timer.StageTimers()
-    with t.stage("step", block_on=[torch.zeros(2), _FakeCudaTensor()]):
-        pass
-    assert len(_FakeEvent.made) == 1
-    assert _FakeEvent.made[0].calls == [("record", "stream of cuda:0"), ("synchronize",)]
-    assert set(t.ms) == {"step"} and t.ms["step"] >= 0
-    assert "step" in t.report()
+def test_stage_waits_on_a_cuda_event():
+    """The stage timers: a disabled timer records nothing and opens no span
+    (its `stage` is one shared null context, so a span that would wait on
+    the card costs nothing); an enabled one adds each span's ms, nested
+    spans inside their outer one, and reports its spans, counters and
+    set-up records, of which `clear` keeps only the set-up."""
     off = timer.StageTimers(enabled=False)
-    with off.stage("step", block_on=_FakeCudaTensor()):
+    assert off.stage("step") is off.stage("other")
+    with off.stage("step"):
         pass
-    assert not off.ms and len(_FakeEvent.made) == 1
-    c = timer.CPUTimer()
-    c.start()
-    assert c.stop() >= 0 and c.total_ms >= 0
+    assert not off.ms and not off.counts and off.report() == ""
+    t = timer.StageTimers()
+    with t.stage("outer"):
+        with t.stage("inner"):
+            sum(range(1000))
+        with t.stage("inner"):
+            pass
+    assert set(t.ms) == {"outer", "inner"} and 0 <= t.ms["inner"] <= t.ms["outer"]
+    t.counts["host_waits"] += 1
+    t.setup = {"capture_s": 0.5, "graph_bytes": 4096}
+    report = t.report()
+    assert all(k in report for k in ("outer", "inner", "host_waits", "capture_s",
+                                     "graph_bytes"))
+    t.clear()
+    assert not t.ms and not t.counts and t.setup["graph_bytes"] == 4096
 
 
 def test_copied_cli_helpers_match_jax(tmp_path):
