@@ -24,12 +24,13 @@ the CPU) step together in rounds, with one read of their stacked flags a
 round (`traverse_together`). Two distance functions drive it: PQ table lookup
 (`make_pq_distance_fn`, kernels K1 and K2) and exact L2
 (`make_exact_distance_fn`, kernel K3). Two visited sets filter the
-candidates: the exact mask (ops/visited.exact_new_mask, the default) or the
-reference's per-query bloom filter (ops/bloom.py, `visited_mode="bloom"`),
-inserted after the beam's first-occurrence mask, in the JAX package's
-order. The bloom filter also blocks the re-entry of nodes evicted before
-they were expanded, which the exact mask allows; the JAX package differs
-the same way.
+candidates: the exact mask, with the beam's first-occurrence mask and the
++inf masking in one kernel a step on the card (ops/visited.visited_filter,
+the default), or the reference's per-query bloom filter (ops/bloom.py,
+`visited_mode="bloom"`), inserted after the beam's first-occurrence mask,
+in the JAX package's order. The bloom filter also blocks the re-entry of
+nodes evicted before they were expanded, which the exact mask allows; the
+JAX package differs the same way.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from bang_tpu_torch.ops.pq import pack_tables, pq_distance_tables
 from bang_tpu_torch.ops.pq import pq_lookup as pq_lookup_f32
 from bang_tpu_torch.ops.pq_kernels import frontier_decode_plain, frontier_lookup, pq_lookup
 from bang_tpu_torch.ops.stage_clock import NO_CLOCK, STAGES
-from bang_tpu_torch.ops.visited import exact_new_mask, first_occurrence_mask_blocks
+from bang_tpu_torch.ops.visited import first_occurrence_mask_blocks, visited_filter
 
 
 class TraversalState(NamedTuple):
@@ -241,21 +242,23 @@ def make_step(adj, distance_fn, beam: int = 1, use_bloom: bool = False):
             # the distances read neither visited set: computed before them
             raw = distance_fn(cand, state.parents)
         clock.stamp("frontier")
-        # repeat_interleave with an int count reads its output size back
-        cand_valid = state.parent_valid[:, :, None].expand(q, beam, r).reshape(q, beam * r)
-
         if use_bloom:
+            # repeat_interleave with an int count reads its output size back
+            cand_valid = state.parent_valid[:, :, None].expand(q, beam, r).reshape(
+                q, beam * r)
             pos = bloom_positions(cand, state.bloom.shape[1] - 1)  # query + insert
-            new = ~bloom_query(state.bloom, cand, pos)
-        else:
-            new = exact_new_mask(cand, state.wl_ids, state.visited_ids)
-        new = new & cand_valid & state.active[:, None]
-        if beam > 1:
-            # parents expanded together may share neighbors — keep first lane
-            new = new & first_occurrence_mask_blocks(cand, beam)
-        if use_bloom:
+            new = ~bloom_query(state.bloom, cand, pos) & cand_valid & state.active[:, None]
+            if beam > 1:
+                # parents expanded together may share neighbors — keep first lane
+                new = new & first_occurrence_mask_blocks(cand, beam)
             bloom_insert(state.bloom, cand, new, pos)
-        dist = torch.where(new, raw, torch.full_like(raw, float("inf")))
+            dist = torch.where(new, raw, torch.full_like(raw, float("inf")))
+        else:
+            # the eager loop's `active` is a column of select_parents_beam's
+            # valid; the captured loop's is its own contiguous buffer
+            new, dist = visited_filter(cand, raw, state.wl_ids, state.visited_ids,
+                                       state.parent_valid, state.active.contiguous(),
+                                       beam)
         clock.stamp("visited")
         wl_dist, wl_ids, wl_vis = merge_worklist(
             state.wl_dist, state.wl_ids, state.wl_vis, dist, cand

@@ -51,6 +51,7 @@ SIGNATURES = {
     "exact_frontier": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P),
     "frontier_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "row_gather": (_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _P, _P),
+    "visited_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "graph_loop": (_P, _P),
     "stage_clock": (_P, _I, _P, _P),
 }
@@ -72,7 +73,7 @@ MAX_LOOKUP_CHUNKS = MAX_PACKED_CHUNKS - 1  # 453
 _LOADED: dict[str, ctypes.CDLL] = {}
 # the wrappers whose kernels count their launches, in their counter slots
 COUNTED = ("pq_lookup", "frontier_lookup", "exact_frontier", "lookup_packed",
-           "frontier_packed", "row_gather", "stage_clock")
+           "frontier_packed", "row_gather", "visited_filter", "stage_clock")
 _COUNTERS: dict[int, torch.Tensor] = {}  # device index -> int64 [len(COUNTED)]
 _WRAPPERS: dict[str, object] = {}  # name -> wrapper, once it has launched
 BUILD_INFO: dict[str, dict] = {}  # name -> {"seconds", "cached", "log"}

@@ -22,8 +22,9 @@ path went through the kernels. Each kernel counts its own launches on the
 card (ops/_build.launch_counter), so the launches of a CUDA graph's replays,
 which run no Python, count as the eager ones do; `launch_counts` adds the
 cards' counts in and reads them all, `reset_launch_counts` zeroes them all:
-K3 `exact_frontier` (ops/exact_kernels.py) and K5-K6 and `lookup_packed`
-(ops/probe_kernels.py) included.
+K3 `exact_frontier` (ops/exact_kernels.py), K5-K6 and `lookup_packed`
+(ops/probe_kernels.py) and the traversal's `visited_filter`
+(ops/visited.py) included.
 
 Both kernels sum the m bf16 entries of a candidate in f32, in chunk order,
 so on the same codes they agree with each other and with K5 bit for bit.
@@ -59,6 +60,7 @@ from bang_tpu_torch.ops.probe_kernels import (
     run_lookup,
 )
 from bang_tpu_torch.ops.stage_clock import stage_clock
+from bang_tpu_torch.ops.visited import visited_filter
 
 MAX_BEAM = 16  # SearchParams.beam_width's bound
 
@@ -184,9 +186,10 @@ def frontier_lookup(packed: torch.Tensor, fused_rows: torch.Tensor,
 frontier_lookup.launches = 0
 
 # every kernel wrapper of the port: K1-K2 here, K3 (ops/exact_kernels),
-# lookup_packed (K1's kernel) and K5-K6 (ops/probe_kernels)
+# lookup_packed (K1's kernel) and K5-K6 (ops/probe_kernels), and the
+# visited filter (ops/visited)
 KERNELS = (pq_lookup, frontier_lookup, exact_frontier, lookup_packed,
-           frontier_packed, row_gather)
+           frontier_packed, row_gather, visited_filter)
 
 
 def launch_counts() -> dict:

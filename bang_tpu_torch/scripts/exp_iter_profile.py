@@ -12,9 +12,11 @@ the bundle's widths (1M fused rows, the packed bf16-pair tables): a
 stage's cost depends on the shapes, not on the values. Stages:
 
   k2_frontier      K2 over [Q, beam] parents: ids + PQ distances [Q, 128]
-  dedup_masks      ops/visited.exact_new_mask + first_occurrence_mask_blocks
+  dedup_masks      ops/visited.visited_filter: the exact mask, the beam's
+                   first-occurrence mask and the +inf masking (one kernel
+                   on the card)
   merge_select     ops/merge.merge_worklist + select_parents_beam
-  minus_k2         the two above with the masking between them
+  minus_k2         the two above
   full_iteration   all of it, K2 first
 
 Each stage is timed with CUDA events around `iters` calls after three
@@ -43,12 +45,15 @@ from bang_tpu_torch.utils.timer import RANGE_PREFIX
 N, Q, L, BEAM, R, M, MI = 1_000_000, 10_000, 12, 2, 64, 64, 24
 TAG = "exp_iter_profile"
 
-# the traversal's steps whose device time a profile reads by name:
-# models/traversal's module globals (models/base calls the same names),
-# each run inside a profiler range. The profiler ties no kernel launched
-# through ctypes (K1-K3) to a range: their times are in the per-kernel rows.
-PROFILE_STAGES = ("exact_new_mask", "first_occurrence_mask_blocks", "merge_worklist",
-                  "select_parents_beam", "bloom_positions", "bloom_query", "bloom_insert")
+# the traversal's steps whose device time a profile reads by name: the
+# module globals of models/traversal or models/base that it has, each run
+# inside a profiler range (traversal's exact mode calls visited_filter,
+# base's exact_new_mask and first_occurrence_mask_blocks). The profiler
+# ties no kernel launched through ctypes (K1-K3, the visited filter) to a
+# range: their times are in the per-kernel rows.
+PROFILE_STAGES = ("visited_filter", "exact_new_mask", "first_occurrence_mask_blocks",
+                  "merge_worklist", "select_parents_beam", "bloom_positions",
+                  "bloom_query", "bloom_insert")
 BLOOM_STAGES = PROFILE_STAGES[-3:]
 
 
@@ -57,17 +62,18 @@ def log(msg):
 
 
 @contextlib.contextmanager
-def traversal_stages(mask, traversal=None):
+def traversal_stages(mask=None, traversal=None):
     """Run the traversal (models/traversal, or the module given, which calls
-    the same step functions by the same names: models/base) with `mask` as
-    its visited mask and each of PROFILE_STAGES inside a torch.profiler
-    range of its name (the kernels a range launches count towards its device
-    time); restore them after."""
+    step functions by the same names: models/base) with each of
+    PROFILE_STAGES that it has inside a torch.profiler range of its name
+    (the kernels a range launches count towards its device time), and with
+    `mask`, when given, as its exact_new_mask; restore them after."""
     if traversal is None:
         from bang_tpu_torch.models import traversal
 
-    saved = {name: getattr(traversal, name) for name in PROFILE_STAGES}
-    fns = {**saved, "exact_new_mask": mask}
+    saved = {name: getattr(traversal, name) for name in PROFILE_STAGES
+             if hasattr(traversal, name)}
+    fns = {**saved, **({"exact_new_mask": mask} if mask is not None else {})}
 
     def ranged(name, fn):
         def run(*args):
@@ -142,7 +148,7 @@ def main(device="cuda", n=N, q=Q, L=L, beam=BEAM, r=R, m=M, mi=MI, iters=cm.ITER
     "max_abs_err"}} (ms None on the CPU) and the shapes."""
     from bang_tpu_torch.ops import pq_kernels as pk
     from bang_tpu_torch.ops.merge import merge_worklist, select_parents_beam
-    from bang_tpu_torch.ops.visited import exact_new_mask, first_occurrence_mask_blocks
+    from bang_tpu_torch.ops.visited import visited_filter
 
     dev, gen = cm.setup(device, seed)
     rows, _adj = cm.fused_rows(gen, n, r, m, n, dev)
@@ -154,13 +160,14 @@ def main(device="cuda", n=N, q=Q, L=L, beam=BEAM, r=R, m=M, mi=MI, iters=cm.ITER
     wl_vis = torch.rand((q, L), generator=gen, device=dev) < 0.5
     visited = torch.randint(0, n, (q, mi * beam), generator=gen, device=dev,
                             dtype=torch.int32)
+    parent_valid = torch.ones((q, beam), dtype=torch.bool, device=dev)
+    active = torch.ones((q,), dtype=torch.bool, device=dev)
     fetched = [pk.frontier_lookup(packed, rows, p) for p in pars]  # (ids, dists)
     res = {"shapes": {"n": n, "q": q, "L": L, "beam": beam, "r": r, "m": m, "mi": mi},
            "route": "fused rows, K2 frontier_lookup"}
 
-    def dedup(cand):
-        return (exact_new_mask(cand, wl_ids, visited)
-                & first_occurrence_mask_blocks(cand, beam))
+    def dedup(cand, raw):
+        return visited_filter(cand, raw, wl_ids, visited, parent_valid, active, beam)[1]
 
     def merge_select(dist, cand):
         nwd, nwi, nwv = merge_worklist(wl_dist, wl_ids, wl_vis, dist, cand)
@@ -168,19 +175,17 @@ def main(device="cuda", n=N, q=Q, L=L, beam=BEAM, r=R, m=M, mi=MI, iters=cm.ITER
 
     def minus_k2(i):
         cand, raw = fetched[i]
-        dist = torch.where(dedup(cand), raw, torch.full_like(raw, float("inf")))
-        return merge_select(dist, cand)
+        return merge_select(dedup(cand, raw), cand)
 
     def full(i):
         cand, raw = pk.frontier_lookup(packed, rows, pars[i])
-        dist = torch.where(dedup(cand), raw, torch.full_like(raw, float("inf")))
-        return merge_select(dist, cand)
+        return merge_select(dedup(cand, raw), cand)
 
     err = cm.dist_err("k2_frontier", fetched[0][1],
                       pk.frontier_lookup_plain(packed, rows, pars[0])[1])
     stages = (
         ("k2_frontier", lambda i: pk.frontier_lookup(packed, rows, pars[i])),
-        ("dedup_masks", lambda i: dedup(fetched[i][0])),
+        ("dedup_masks", lambda i: dedup(*fetched[i])),
         ("merge_select", lambda i: merge_select(fetched[i][1], fetched[i][0])),
         ("minus_k2", minus_k2),
         ("full_iteration", full),

@@ -8,8 +8,8 @@
 Phases, each printing progress; any failure raises and exits non-zero:
   1. device   — require CUDA; print the card's name and power limit
                 (nvidia-smi), torch, CUDA and nvcc versions.
-  2. build    — build the seven sources of bang_tpu_torch/csrc: the five
-                kernel sources (six wrappers: lookup_packed launches K1's),
+  2. build    — build the eight sources of bang_tpu_torch/csrc: the six
+                kernel sources (seven wrappers: lookup_packed launches K1's),
                 graph_loop.cu (the captured search's WHILE node,
                 models/compiled.py) and stage_clock.cu (ENABLE_GPU_STATS's
                 stamp, ops/stage_clock.py), one nvcc per source, all
@@ -34,11 +34,18 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 4-byte, byte) and parents in groups, and with parents
                 outside [0, N) (id -1, +inf). Times each at its main path's
                 shape; K1's and K2's bounds count the packed tables' bytes.
-  mask        — the sorted visited mask (ops/visited.exact_new_mask, plain
-                PyTorch) identical to its dense form on random ids at both
-                search shapes (Q=10K; C=128 L=128 MI=140 and C=64 L=100
-                MI=106), INVALID_ID padding and candidates included; both
-                timed.
+  visited     — the traversal's visited filter (ops/visited.visited_filter,
+                csrc/visited_filter.cu) against its plain version
+                (visited_filter_plain, the sorted mask's composition), new
+                and dist bit for bit, on random ids with INVALID_ID in all
+                three lists, inactive queries and invalid parents, at the
+                benchmark cell's step (Q=10K, beam 2, R=64, L=40, V=52),
+                both searches' profiled shapes (in-memory L=128 V=140,
+                exact L=100 V=106), beam 3 at R=24 (C=72, L and V odd),
+                beam 16 and L=512 beam 1;
+                the sorted mask equal to its dense form at each. At the
+                cell's shape the kernel and the plain version timed (plain,
+                kernel, kernel, plain) beside the kernel's bound.
   probes      — lookup_packed (K1's kernel), K5 frontier_packed (with and
                 without id planes) and K6 row_gather, the counterparts of
                 the six Pallas probes in scripts/, against their plain
@@ -67,13 +74,12 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 Then one call at L=128 under torch.profiler, after three
                 timed ones: kernel device ms by name, busy share,
                 peak memory; and the eager loop (a replay cannot be split
-                into stages) profiled with the sorted visited mask and again
-                with its dense form: kernel device ms by traversal stage.
+                into stages) profiled: kernel device ms by traversal stage.
   6. scattered — the same bundle on the scattered-codes layout (K1 over the
                 packed tables) at the best L: ids and iterations identical
                 to phase 5's (K1 and K2 sum the same entries in the same
                 order). Then one call at L=512 under torch.profiler, as
-                phase 5's (the sorted mask only).
+                phase 5's.
   7. exact    — BANGSearch("exactdistance") on the fused exact rows (K3),
                 L in {10, 16, 30, 60, 100}, beam 1, extra_iters 6: recall@10
                 >= 90 at the best L; no re-rank, so the distances checked are
@@ -112,7 +118,8 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 captured, eager after each key's capture: ids, distances,
                 iterations, distance computations and K1/K2/K3 launches (as
                 the kernels count them on the card) identical (base: steps
-                and readback waits too), the path's kernel once a step;
+                and readback waits too), the path's kernel once a step
+                (and in exact mode the visited filter);
                 walls, blocking host waits a call, peak GB allocated, peak
                 GB reserved from an emptied cache (captured with its pool,
                 eager with the graphs dropped), graph pool GB by part,
@@ -151,7 +158,10 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 identical bit for bit; the stage clock's stamps (ops/stage_clock, counted by
                 the kernel on the card) 5 a step plus 2 in the prologue and
                 2 in the epilogue, 5 (iters - 1) + 4, a stats-on call, none
-                a stats-off call; one host wait a stats-on call; the graph's
+                a stats-off call; the path's kernel and the visited filter
+                once a step of a captured call; `dev.visited` with the
+                filter's kernel, and again captured with its plain version
+                (the answers identical); one host wait a stats-on call; the graph's
                 device span from the stamps (`dev.graph`) within 3% of a
                 CUDA event pair around the same launch (median of 5, the
                 queries on the card); the stage split printed. Then
@@ -259,8 +269,8 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 in-memory L in {32, 64, 128}, beam 2, Q=10K, each through
                 phase 18's pattern (eager, captured, captured, eager):
                 ids, distances, iterations and distance computations
-                identical across the three layouts, the path's kernel once
-                a step; walls, busy shares, pools. Every pq_impl through the
+                identical across the three layouts, the path's kernel and
+                the visited filter once a step; walls, busy shares, pools. Every pq_impl through the
                 three variants (in-memory on all three layouts at L=64,
                 exact fused and scattered at L=30, base at L=45): "pallas"
                 and "pallas_dma" identical to "auto", "pallas_dma" without
@@ -312,7 +322,9 @@ Phases, each printing progress; any failure raises and exits non-zero:
                 no kernels line, no "ok" line.
 Each probe script and each search phase zeroes every launch count just
 before it and reads them just after: the kernels of its path must have
-launched and no other. The second-to-last line is a JSON object describing
+launched and no other (the visited filter, which every exact-mode
+traversal step launches, is counted there and checked once a step where a
+phase counts steps: 18, 20 and 22). The second-to-last line is a JSON object describing
 each kernel (its launches summed over those runs, its bound from this run's
 byte and operation counts); the last is {"ok": true, "device": {...}}.
 """
@@ -477,10 +489,16 @@ EXACT_SHAPES = (
     ("R=15 D=9 beam=2 (byte row copies)", 4096, 50_000, 15, 9, 2, 50_000, True),
     ("R=64 D=128 beam=16 (parents in groups)", 4096, 100_000, 64, 128, 16, 100_000, True),
 )
-# the visited mask at both search shapes: (label, Q, C candidates, L, MI)
-MASK_SHAPES = (
-    ("inmemory L=128", Q, 2 * R, 128, 140),
-    ("exactdistance L=100", Q, R, 100, 106),
+GRAPH_REPS = 20  # the visited filter's calls in one timed CUDA graph
+# the visited filter: (label, Q, beam, R, L, V = max_iters * beam); the
+# first, the benchmark cell's step (gpubench sift1m-inmemory), is timed
+VISITED_SHAPES = (
+    ("cell L=40 beam 2", Q, 2, R, 40, 52),
+    ("inmemory L=128 beam 2", Q, 2, R, 128, 140),
+    ("exactdistance L=100 beam 1", Q, 1, R, 100, 106),
+    ("R=24 beam 3 L=37 V=22", 4096, 3, 24, 37, 22),
+    ("beam 16 L=128", 2048, 16, R, 128, 144),
+    ("L=512 beam 1", Q, 1, R, 512, 562),
 )
 # lookup_packed/K5: (label, Q, N rows, R, m, beam, ids drawn below)
 PROBE_SHAPES = (
@@ -510,6 +528,8 @@ KERNEL_SOURCES = {
     "frontier_packed": ("bang_tpu_torch/csrc/frontier_packed.cu", "scripts/exp_fused.py:79",
                         ["scripts/exp_flat2.py:148"]),
     "row_gather": ("bang_tpu_torch/csrc/row_gather.cu", "scripts/exp_dma_tiled.py:71", []),
+    # no TPU kernel: the JAX package leaves the visited filter to XLA
+    "visited_filter": ("bang_tpu_torch/csrc/visited_filter.cu", None, []),
 }
 # one H100 SXM (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s outside the
 # tensor cores
@@ -600,10 +620,27 @@ def _time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def _time_pair(result, name, label, kern, plain):
+def _graph_of(fn):
+    """A callable that replays GRAPH_REPS calls of fn captured in one CUDA
+    graph (fn runs once first, outside the capture)."""
+    fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_REPS):
+            fn()
+    return graph.replay
+
+
+def _time_pair(result, name, label, kern, plain, calls=1):
     """Time a kernel and its plain version in the order plain, kernel,
-    kernel, plain; record the means."""
-    p1, k1, k2, p2 = _time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain)
+    kernel, plain; record the means (over `calls` calls a run of kern or
+    plain)."""
+    p1, k1, k2, p2 = (_time_ms(fn) / calls for fn in (plain, kern, kern, plain))
     result[name]["ms"] = (k1 + k2) / 2
     result[name]["plain_ms"] = (p1 + p2) / 2
     log(f"time {name} at {label}: kernel {k1:.4f} / {k2:.4f} ms, "
@@ -682,36 +719,61 @@ def _k3_out_of_range(gen, dev):
     log("kernels K3 parents outside [0, N): id -1 and +inf, the rest as plain")
 
 
-def phase_mask(dev):
-    """The sorted visited mask (ops/visited.exact_new_mask, plain PyTorch on
-    the search path) against its dense oracle on the card, at both search
-    shapes, on random ids with INVALID_ID tails and INVALID_ID candidates:
-    identical or raise. Times both."""
+def _visited_inputs(gen, q, beam, r, l, v, dev):
+    """The visited filter's inputs: ids from a small range, so candidates
+    hit both lists and each other; INVALID_ID among the candidates and as
+    the lists' tails; a fifth of the queries inactive and of the parents
+    invalid."""
+    def ids(cols):
+        return torch.randint(0, max(2 * (l + v) // 3, 8), (q, cols), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def coin(shape, p):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    c = beam * r
+    cand, wl, vis = ids(c), ids(l), ids(v)
+    cand[coin((q, c), 0.05)] = -1
+    wl[:, 3 * l // 4 :] = -1
+    vis[:, v // 2 :] = -1
+    raw = torch.rand((q, c), generator=gen, device=dev) * 1e3
+    return cand, raw, wl, vis, ~coin((q, beam), 0.2), ~coin((q,), 0.2)
+
+
+def phase_visited(dev, result):
+    """The visited filter against its plain version at VISITED_SHAPES (the
+    module docstring's `visited`); the sorted mask against its dense form
+    at each; the first shape timed beside its bound."""
     from bang_tpu_torch.ops import visited
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    for label, q, c, l, mi in MASK_SHAPES:
-        def ids(cols):  # a small id range, so that candidates hit both lists
-            return torch.randint(0, 2 * (l + mi), (q, cols), generator=gen,
-                                 device=dev, dtype=torch.int32)
-
-        cand, wl, vis = ids(c), ids(l), ids(mi)
-        cand[torch.rand((q, c), generator=gen, device=dev) < 0.05] = -1
-        wl[:, 3 * l // 4 :] = -1
-        vis[:, mi // 2 :] = -1
-        got = visited.exact_new_mask(cand, wl, vis)
-        want = visited.exact_new_mask_dense(cand, wl, vis)
+    for i, (label, q, beam, r, l, v) in enumerate(VISITED_SHAPES):
+        args = _visited_inputs(gen, q, beam, r, l, v, dev)
+        new, dist = visited.visited_filter(*args, beam)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"exact_new_mask {label}: differs from the dense "
-                                 f"form on {int((got != want).sum())} candidates")
-        t = [_time_ms(lambda: fn(cand, wl, vis)) for fn in (
-            visited.exact_new_mask_dense, visited.exact_new_mask,
-            visited.exact_new_mask, visited.exact_new_mask_dense)]
-        log(f"mask {label} Q={q} C={c} L={l} MI={mi}: sorted identical to dense "
-            f"({float(got.float().mean()):.3f} new); sorted {t[1]:.4f} / {t[2]:.4f} ms, "
-            f"dense {t[0]:.4f} / {t[3]:.4f} ms")
-        del cand, wl, vis, got, want
+        want_new, want_dist = visited.visited_filter_plain(*args, beam)
+        if not (torch.equal(new, want_new)
+                and torch.equal(dist.view(torch.int32), want_dist.view(torch.int32))):
+            raise AssertionError(
+                f"visited_filter {label}: differs from the plain version on "
+                f"{int((new != want_new).sum())} masks, "
+                f"{int((dist.view(torch.int32) != want_dist.view(torch.int32)).sum())} "
+                "distances")
+        cand, _, wl, vis = args[:4]
+        if not torch.equal(visited.exact_new_mask(cand, wl, vis),
+                           visited.exact_new_mask_dense(cand, wl, vis)):
+            raise AssertionError(f"exact_new_mask {label}: differs from the dense form")
+        log(f"visited {label} (Q={q} C={beam * r} L={l} V={v}): kernel identical to "
+            f"the plain version bit for bit ({float(new.float().mean()):.3f} new); "
+            "the sorted mask identical to the dense form")
+        if i == 0:  # in CUDA graphs: a launch takes the host longer than the kernel
+            kern = _graph_of(lambda: visited.visited_filter(*args, beam))
+            plain = _graph_of(lambda: visited.visited_filter_plain(*args, beam))
+            _time_pair(result, "visited_filter", label, kern, plain, GRAPH_REPS)
+            c = beam * r
+            # read cand, raw, wl, vis, parent_valid, active; write new, dist
+            _bound(result, "visited_filter", q * (8 * c + 4 * (l + v) + beam + 1 + 5 * c))
+        del args, new, dist, want_new, want_dist, cand, wl, vis
     torch.cuda.empty_cache()
 
 
@@ -1052,15 +1114,12 @@ def run_search(prefix, dev, variant, l_values, fused_frontier=None,
     return rows
 
 
-def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
-                   visited_mode="exact"):
+def profile_search(prefix, dev, variant, L, fused_frontier=None, visited_mode="exact"):
     """BANGSearch(variant) at L on the layout `fused_frontier` picks (the
     fused one by default): three timed calls of the captured loop, then one
     under torch.profiler (kernel device ms by name, the device's busy share
     over the call's wall, peak memory). Then the eager loop (its plain
-    version) under torch.profiler with the sorted visited mask and, when
-    `dense`, again with its dense form (the JAX expression), or with the
-    bloom filter: the device ms of each traversal stage
+    version) under torch.profiler: the device ms of each traversal stage
     (exp_iter_profile.PROFILE_STAGES), which a graph replay cannot split;
     in bloom mode also the filter's ms a step (hash, query and insert)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1068,7 +1127,6 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
     from bang_tpu_torch.api import BANGSearch
     from bang_tpu_torch.formats.bin_io import load_bin
     from bang_tpu_torch.models import compiled, exactdistance, inmemory
-    from bang_tpu_torch.ops import visited
     from bang_tpu_torch.scripts import exp_iter_profile as eip
 
     queries = load_bin(prefix + "_query.bin", np.uint8)
@@ -1104,33 +1162,26 @@ def profile_search(prefix, dev, variant, L, fused_frontier=None, dense=True,
     eager = (inmemory.search_inmemory_eager if variant == "inmemory"
              else exactdistance.search_exact_eager)
     q = torch.as_tensor(queries)
-    if visited_mode == "bloom":  # the mask is not called
-        masks = [("bloom filter", visited.exact_new_mask)]
-    else:
-        masks = [("sorted mask", visited.exact_new_mask)]
-        if dense:
-            masks.append(("dense mask", visited.exact_new_mask_dense))
-    for mask_name, mask in masks:
-        label = f"profile {variant} {layout} L={L} eager {mask_name}"
-        with eip.traversal_stages(mask):
-            compiled.readback(*eager(ix, q, s._params)[:2])  # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                compiled.readback(*eager(ix, q, s._params)[:2])
-                wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        total, stages, _ = eip.read_profile(prof, label, eip.PROFILE_STAGES)
-        log(f"{label}: kernels {total:.3f} ms in a {wall * 1e3:.3f} ms wall, busy "
-            f"{total / (wall * 1e3):.1%}; peak {peak / 1e9:.2f} GB")
-        if visited_mode == "bloom":
-            ms = sum(stages.get(name, (0.0, 0))[0] for name in eip.BLOOM_STAGES)
-            steps = stages.get("bloom_query", (0.0, 0))[1]
-            if not steps:
-                raise AssertionError(f"{label}: the bloom filter was never queried")
-            log(f"{label}: bloom hash + query + insert {ms:.3f} ms over {steps} "
-                f"steps, {ms / steps:.4f} ms a step")
+    label = f"profile {variant} {layout} L={L} eager {visited_mode}"
+    with eip.traversal_stages():
+        compiled.readback(*eager(ix, q, s._params)[:2])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            compiled.readback(*eager(ix, q, s._params)[:2])
+            wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total, stages, _ = eip.read_profile(prof, label, eip.PROFILE_STAGES)
+    log(f"{label}: kernels {total:.3f} ms in a {wall * 1e3:.3f} ms wall, busy "
+        f"{total / (wall * 1e3):.1%}; peak {peak / 1e9:.2f} GB")
+    if visited_mode == "bloom":
+        ms = sum(stages.get(name, (0.0, 0))[0] for name in eip.BLOOM_STAGES)
+        steps = stages.get("bloom_query", (0.0, 0))[1]
+        if not steps:
+            raise AssertionError(f"{label}: the bloom filter was never queried")
+        log(f"{label}: bloom hash + query + insert {ms:.3f} ms over {steps} "
+            f"steps, {ms / steps:.4f} ms a step")
     s.bang_unload()
     torch.cuda.empty_cache()
 
@@ -1338,6 +1389,16 @@ def _delta(before):
     return {k: v - before[k] for k, v in _launches().items() if v != before[k]}
 
 
+def _step_launches(kernel, steps, visited_mode="exact"):
+    """The launches of a captured search of `steps` steps: its path's
+    kernel (None: none) once a step, and in exact mode the visited filter
+    once a step."""
+    want = {} if kernel is None else {kernel: steps}
+    if visited_mode == "exact":
+        want["visited_filter"] = steps
+    return want
+
+
 _PROFILER_STARTED = []
 
 
@@ -1438,7 +1499,8 @@ def _captured_point(index, variant, L, entry_mode, visited_mode, queries, label)
     """One search point: the key's first call (the eager loop, then the
     capture), then eager, captured, captured, eager calls (ids, distances,
     iterations, distance computations and kernel launches identical; the
-    path's kernel once a step), then one profiled call of each."""
+    path's kernel once a step, and in exact mode the visited filter), then
+    one profiled call of each."""
     from bang_tpu_torch.models import compiled, exactdistance, inmemory
     from bang_tpu_torch.utils.config import SearchParams
 
@@ -1464,9 +1526,10 @@ def _captured_point(index, variant, L, entry_mode, visited_mode, queries, label)
     kernel = {"inmemory": "frontier_lookup", "exactdistance": "exact_frontier"}[variant]
     if index.fused_rows is None and variant == "inmemory":
         kernel = "pq_lookup"
-    if c["launches"] != {kernel: c["iters"] - 1}:
+    if c["launches"] != _step_launches(kernel, c["iters"] - 1, visited_mode):
         raise AssertionError(f"captured {label} L={L}: launches {c['launches']}, "
-                             f"expected {kernel} once in each of {c['iters'] - 1} steps")
+                             f"expected {kernel} (and in exact mode the visited "
+                             f"filter) once in each of {c['iters'] - 1} steps")
     calls = {kind: lambda fn=fns[kind == "captured"]: compiled.readback(
         *fn(index, q, params)[:2]) for kind in ("eager", "captured")}
     # peak reserved: captured with its pool; eager with the graphs dropped,
@@ -1935,7 +1998,7 @@ def phase_bloom(prefix, dev, totals):
             runs[mode].append(counted(f"search {what} {mode}", launched,
                                       lambda: run(mode), totals))
         _against_exact(what, runs["exact"], runs["bloom"])
-    profile_search(prefix, dev, "inmemory", PROFILE_L, dense=False, visited_mode="bloom")
+    profile_search(prefix, dev, "inmemory", PROFILE_L, visited_mode="bloom")
 
 
 def _beam_extra(variant):
@@ -2927,8 +2990,16 @@ def phase_stats(prefix, dev, totals):
         if abs(ratio - 1) > 0.03:
             raise AssertionError(f"{label}: dev.graph / event pair {ratio:.4f}, "
                                  "outside 3%")
+        launches = _stats_launches(label, engine, queries, next(iter(kernels[variant])))
+        visited_ms = {"kernel": split["dev.visited"],
+                      "plain": _plain_visited_ms(label, engine, variant, L, queries,
+                                                 ids_on, d_on)}
+        log(f"{label}: dev.visited {visited_ms['kernel']:.4f} ms a call with the "
+            f"visited filter's kernel, {visited_ms['plain']:.4f} ms captured with its "
+            "plain version (answers identical)")
         rows[variant] = {"L": L, "iters": iters, "stamps": stamps, "split_ms": split,
-                         "graph_event_ms": pairs}
+                         "graph_event_ms": pairs, "launches": launches,
+                         "visited_ms": visited_ms}
         engine.bang_unload()
         torch.cuda.empty_cache()
     readings, step = _timer_step(dev)
@@ -2936,6 +3007,43 @@ def phase_stats(prefix, dev, totals):
         f"({len(readings)} distinct), step {step} ns; on {_smi()}")
     rows["timer_step_ns"] = step
     return rows
+
+
+def _stats_launches(label, engine, queries, kernel):
+    """Phase 22: one more captured call, its launches read: the path's
+    kernel and the visited filter once a step."""
+    from bang_tpu_torch.ops import pq_kernels as pk
+
+    pk.reset_launch_counts()
+    engine.bang_query(queries)
+    counts = {k: c for k, c in pk.launch_counts().items() if c}
+    steps = engine.last_stats.iters - 1
+    if counts != _step_launches(kernel, steps):
+        raise AssertionError(f"{label}: launches {counts} a captured call of {steps} steps")
+    log(f"{label}: launches a captured call {counts} ({steps} steps)")
+    return counts
+
+
+def _plain_visited_ms(label, engine, variant, L, queries, ids, dists):
+    """Phase 22: the engine's stats-on search captured again with the
+    visited filter's plain version in the traversal's step (the PyTorch
+    composition it replaced); its `dev.visited` ms a call. Its answers
+    must be `ids` and `dists`. The plain capture is dropped after."""
+    from bang_tpu_torch.models import compiled, traversal
+    from bang_tpu_torch.ops import visited
+
+    compiled.drop_graphs(engine._index)
+    traversal.visited_filter = visited.visited_filter_plain
+    try:
+        _stats_params(engine, variant, L, True, len(queries))
+        got_ids, got_d = engine.bang_query(queries)
+        ms = engine.timers.ms["dev.visited"]
+    finally:
+        traversal.visited_filter = visited.visited_filter
+        compiled.drop_graphs(engine._index)
+    if not (np.array_equal(got_ids, ids) and np.array_equal(got_d, dists)):
+        raise AssertionError(f"{label}: answers with the plain visited filter differ")
+    return ms
 
 
 def _nbr_layout_points(ixs, queries):
@@ -2961,7 +3069,7 @@ def _nbr_layout_points(ixs, queries):
                 params = SearchParams(L=L, k=K, beam_width=beam, extra_iters=extra)
                 run = _captured_hbm(inmemory.search_inmemory, ix, q, params)
                 kernel = "pq_lookup" if ix.fused_rows is None else "frontier_lookup"
-                if run["launches"] != {kernel: run["iters"] - 1}:
+                if run["launches"] != _step_launches(kernel, run["iters"] - 1):
                     raise AssertionError(f"phase 20 {name} L={L}: launches "
                                          f"{run['launches']}")
                 pts[name] = {"run": run}
@@ -3017,8 +3125,7 @@ def _impl_points(prefix, dev, ixs, exact_ixs, queries, gt_ids, gt_dists):
         label = f"phase 20 {variant} {name} L={IMPL_L[variant]}"
         for impl, run in runs.items():
             pq_route = variant == "inmemory" and impl == "xla"
-            want = ({} if kernel is None or pq_route
-                    else {kernel: run["iters"] - 1})
+            want = _step_launches(None if pq_route else kernel, run["iters"] - 1)
             if run["launches"] != want:
                 raise AssertionError(f"{label} {impl}: launches {run['launches']}, "
                                      f"expected {want}")
@@ -3432,22 +3539,26 @@ def real_run(dev, name, out_dir):
         result["gt_dist_max_rel_err"] = check_real(name, tmp, base, queries, res)
     with open(os.path.join(out_dir, f"real_{name}.json"), "w") as f:
         json.dump(result, f, indent=1)
-    if any((c > 0) != (k == "frontier_lookup") for k, c in result["launches"].items()):
+    if any((c > 0) != (k in ("frontier_lookup", "visited_filter"))
+           for k, c in result["launches"].items()):
         raise AssertionError(f"real {name}: launches {result['launches']}, expected only "
-                             f"frontier_lookup")
+                             f"frontier_lookup and visited_filter")
 
 
 def counted(label, launched, fn, totals):
     """Run one search phase with every launch count zeroed just before and
     read just after; fail unless exactly the kernels named in `launched`
-    ran. Adds the counts to `totals`."""
+    ran, beside the visited filter, which every exact-mode step of a
+    traversal launches (the phases that count steps check it once a step).
+    Adds the counts to `totals`."""
     from bang_tpu_torch.ops import pq_kernels as pk
 
     pk.reset_launch_counts()
     out = fn()
     counts = pk.launch_counts()
     log(f"{label}: launches {counts}")
-    if any((c > 0) != (name in launched) for name, c in counts.items()):
+    if any((c > 0) != (name in launched) for name, c in counts.items()
+           if name != "visited_filter"):
         raise AssertionError(f"{label}: launches {counts}, expected only {launched}")
     for name, c in counts.items():
         totals[name] += c
@@ -3487,7 +3598,7 @@ def search_phases(dev, totals, kern, builds):
                 f"inmemory scattered differs from fused: ids on {int((~same).sum())} "
                 f"queries, iterations {scattered['iters']} vs {best['iters']}")
         profile_search(prefix, dev, "inmemory", SCATTERED_PROFILE_L,
-                       fused_frontier=False, dense=False)
+                       fused_frontier=False)
 
         exact = counted("search exactdistance fused", {"exact_frontier"},
                         lambda: run_search(prefix, dev, "exactdistance", EXACT_L_SWEEP),
@@ -3592,7 +3703,7 @@ def main(argv=None):
         log(f"on {smi}")
         return
     kern = phase_kernels(dev)
-    phase_mask(dev)
+    phase_visited(dev, kern)
     t0 = time.perf_counter()
     phase_probes(dev, kern)
     totals = dict.fromkeys(KERNEL_SOURCES, 0)

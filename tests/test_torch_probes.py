@@ -250,16 +250,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_kernel_registry_covers_k1_to_k6():
-    """Six wrappers, five kernel sources (`lookup_packed` launches K1's),
-    the captured search's WHILE-node source, graph_loop.cu
-    (models/compiled.py), which is no kernel wrapper, and the stage clock's
-    stamp (ops/stage_clock), which counts its launches in the last slot but
-    is no compute kernel; resetting zeroes it too."""
+    """Seven wrappers (K1-K6 and the traversal's visited filter), six
+    kernel sources (`lookup_packed` launches K1's), the captured search's
+    WHILE-node source, graph_loop.cu (models/compiled.py), which is no
+    kernel wrapper, and the stage clock's stamp (ops/stage_clock), which
+    counts its launches in the last slot but is no compute kernel;
+    resetting zeroes it too."""
     from bang_tpu_torch.ops.stage_clock import stage_clock
 
     names = [k.__name__ for k in pk.KERNELS]
     assert names == ["pq_lookup", "frontier_lookup", "exact_frontier",
-                     "lookup_packed", "frontier_packed", "row_gather"]
+                     "lookup_packed", "frontier_packed", "row_gather", "visited_filter"]
     assert set(_build.SIGNATURES) == (set(names) - {"lookup_packed"}
                                       | {"graph_loop", "stage_clock"})
     assert sorted(p.stem for p in _build.SRC_DIR.glob("*.cu")) == sorted(_build.SIGNATURES)
